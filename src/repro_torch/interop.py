@@ -1,0 +1,57 @@
+"""Carry parameter trees across: numpy <-> torch, keeping key paths.
+
+A tree is nested dicts, lists and tuples with arrays at the leaves, as the
+reference keeps its params; ``jax.tree.map(np.asarray, params)`` on the
+reference side gives exactly what ``params_from_numpy`` takes.  Complex
+leaves (the cached key spectrum ``keys_fft``) become complex64, every other
+floating leaf keeps its dtype.  Also the small tree helpers the port uses
+where the reference used ``jax.tree``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf-wise over trees of the same structure.  Dicts are
+    walked in sorted key order, as ``jax.tree`` walks them, so leaf lists
+    line up with the reference's."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the traversal order of :func:`tree_map`."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves) -> object:
+    """Rebuild ``tree``'s structure with ``leaves`` in traversal order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _to_torch(x, device):
+    a = np.asarray(x)
+    if np.iscomplexobj(a):
+        a = a.astype(np.complex64)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """numpy (or array-like) leaves -> tensors on ``device``, same key paths."""
+    return tree_map(lambda x: _to_torch(x, device), tree)
+
+
+def params_to_numpy(tree):
+    """Tensor leaves -> numpy arrays on the host, same key paths."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
