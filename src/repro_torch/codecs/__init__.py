@@ -32,9 +32,12 @@ Registered wire stages:
     topk  — magnitude top-k, mask-encoded indices.  args: k | ratio
     noop  — f32 passthrough.
 
-Not ported yet: the Adaptive-R wrapper (``adaptive:``), and the dense and
-BottleNet++ baselines.
+Serving's codec-schedule helpers (``program_key``, ``build_program_table``,
+``chunk_payload_shape``) are ported for static codecs.  Not ported yet: the
+Adaptive-R wrapper (``adaptive:``), and the dense and BottleNet++ baselines.
 """
+from repro_torch.codecs.adaptive import (build_program_table,
+                                         chunk_payload_shape, program_key)
 from repro_torch.codecs.base import (Codec, CodecSpec, WireStage,
                                      apply_quant_bits, available, build,
                                      clamp_R, format_stage, parse_spec,
@@ -51,4 +54,5 @@ __all__ = [
     "IdentityCodec", "C3SLCodec",
     "Chain", "Int8STEQuant", "TopKSparsify", "NoOpWire", "payload_wire_bytes",
     "sequence_group_encode", "sequence_group_decode",
+    "build_program_table", "chunk_payload_shape", "program_key",
 ]

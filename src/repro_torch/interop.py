@@ -44,6 +44,11 @@ def _to_torch(x, device):
     a = np.asarray(x)
     if np.iscomplexobj(a):
         a = a.astype(np.complex64)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (the reference's leaves carry
+        # ml_dtypes' type): carry the bits across as int16
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 

@@ -25,16 +25,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of each source: name -> argtypes (every one returns a
-# cudaError_t as int).  Pointers and the stream go in as c_void_p.
+_F = ctypes.c_float
+# C entry points of each source: name -> argtypes (every one returns an
+# int: a cudaError_t, or a size).  Pointers and the stream go in as c_void_p.
 SIGNATURES = {
     "circconv": {
         "circconv_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
         "circconv_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "paged_attention": {
+        "paged_attention_smem_bytes": [_I, _I],
+        "paged_attention_float": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+        "paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+    },
 }
 
-_lock = threading.Lock()
+# one lock per source, so two sources can compile at the same time
+_locks = {name: threading.Lock() for name in SIGNATURES}
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
@@ -75,7 +82,7 @@ def _compile(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
+    with _locks[name]:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))

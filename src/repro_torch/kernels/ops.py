@@ -1,4 +1,6 @@
-"""Autograd wrappers over the circconv kernels (port of ``repro/kernels/ops.py``).
+"""Public ops over the hand-written kernels (port of ``repro/kernels/ops.py``):
+autograd wrappers over the circconv kernels, and the paged-attention decode
+dispatch.
 
 Adds the doubled-key layout and the backward passes.  The codec is linear
 in its data, and its adjoints are again HRR ops with the SAME keys:
@@ -57,3 +59,29 @@ def bind_superpose_pallas(Z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 def unbind_pallas(S: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """S (G, D), K (R, D) -> Zhat (G, R, D) through the unbind kernel."""
     return _Unbind.apply(S, K.detach())
+
+
+# ---------------------------------------------------------------------------
+# Paged-attention decode (repro_torch.kernels.paged_attention)
+# ---------------------------------------------------------------------------
+
+def paged_attention_decode(q, cache, table, pos, *, length: int,
+                           sliding_window=None, compute_dtype=None):
+    """Decode-step attention over paged KV pools, page-table walk in-kernel.
+
+    ``q`` (B, 1, H, hd) post-rope; ``cache`` the attn sublayer's pool dict
+    ({"k", "v"} float pools, plus {"k_scale", "v_scale"} when int8-
+    quantized); ``table`` (B, P) int32 page table; ``pos`` (B,) int32
+    per-slot positions.  Returns (B, 1, H*hd).  Inference-only: decode
+    never differentiates through the cache read, so there is no autograd
+    Function.  Quantized vs float dispatch mirrors ``apply_gqa_decode``'s
+    ``"k_scale" in cache`` seam.
+    """
+    from repro_torch.kernels import paged_attention as pa
+    if "k_scale" in cache:
+        return pa.paged_attention_quant(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            table, pos, length=length, sliding_window=sliding_window,
+            compute_dtype=compute_dtype)
+    return pa.paged_attention(q, cache["k"], cache["v"], table, pos,
+                              length=length, sliding_window=sliding_window)

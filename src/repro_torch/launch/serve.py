@@ -1,0 +1,201 @@
+"""Batched serving driver: the lockstep decode loop, or the continuous-
+batching engine with chunked prefill (--engine).
+
+Port of ``repro/launch/serve.py`` for what is ported.  Runs on the card
+unless ``--device cpu`` is given; weights are random, drawn from
+``--seed`` on the device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
+        --reduced --engine --kv-layout paged --device cpu
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
+        --engine --kv-layout paged --kv-read kernel --batch 8 \\
+        --cache-len 512 --requests 16 --prompt-len 128 --max-new 32 \\
+        --chunk-size 64 --greedy --codec "c3sl:R=4,backend=pallas"
+
+Not ported yet: the front door, the speculative-decoding flags,
+``--pin-R`` and ``--sanitize`` (ROADMAP.md slices 3, 5 and 7).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import codecs
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.models import lm as lm_lib
+
+
+def _serving_codec(spec: str, D: int, R: int, batch: int):
+    if ">>" in spec:
+        raise NotImplementedError("per-direction link specs are not ported "
+                                  "yet: they come with ROADMAP.md slice 3 "
+                                  "(the codec control plane)")
+    return codecs.clamp_R(codecs.build(spec, D=D, R=R), batch)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_engine(cfg, params, args):
+    """Continuous batching: chunked prefill + device-resident slot state."""
+    from repro_torch.serving.engine import BatchedEngine, Request
+    codec = None
+    if args.codec != "none":
+        codec = _serving_codec(args.codec, cfg.d_model, args.R, args.batch)
+    eng = BatchedEngine(params, cfg, num_slots=args.batch,
+                        max_len=args.cache_len, codec=codec,
+                        codec_params=(codec.init(torch.Generator().manual_seed(7),
+                                                 device=args.device)
+                                      if codec is not None else None),
+                        greedy=args.greedy, seed=args.seed,
+                        prefill_mode=args.prefill_mode,
+                        chunk_size=args.chunk_size, sync_every=args.sync_every,
+                        kv_layout=args.kv_layout, page_size=args.page_size,
+                        num_pages=args.num_pages, interleave=args.interleave,
+                        kv_read=args.kv_read)
+    rng = np.random.RandomState(args.seed + 1)
+    prompts = rng.randint(0, cfg.vocab_size, (args.requests, args.prompt_len))
+    for u, p in enumerate(prompts.tolist()):
+        eng.submit(Request(uid=u, prompt=p, max_new_tokens=args.max_new))
+    t0 = time.time()
+    done = eng.run()
+    _sync(args.device)
+    dt = time.time() - t0
+    gen = sum(len(r.out) for r in done)
+    total = gen + args.requests * args.prompt_len
+    print(f"arch={cfg.name} engine mode={args.prefill_mode} "
+          f"slots={args.batch} chunk={eng.chunk_size} sync={eng.sync_every} "
+          f"kv={args.kv_layout} kv_read={args.kv_read} "
+          f"({eng.stats['kv_read_execution_mode']}) interleave={eng.interleave} "
+          f"codec={eng.codec.spec() if eng.codec is not None else 'none'} "
+          f"device={args.device}")
+    if eng.codec is not None:
+        print(f"cut-layer wire: fwd {eng.stats['wire_bytes_fwd']:,d} B + "
+              f"bwd {eng.stats['wire_bytes_bwd']:,d} B "
+              f"over {eng.stats['decode_steps']} decode steps + "
+              f"{eng.stats['prefill_chunks']} prefill chunks")
+    if eng.paged is not None:
+        print(f"paged pool: {eng.paged.num_pages} pages x "
+              f"{eng.paged.page_size} positions "
+              f"(vs {args.batch * args.cache_len} contiguous positions); "
+              f"cache bytes {eng.cache_bytes}")
+    ttfts = [r.t_first - r.t_submit for r in done if r.t_first is not None]
+    print(f"{len(done)} requests ({args.requests * args.prompt_len} prompt + "
+          f"{gen} generated tokens) in {dt:.2f}s ({total / dt:.1f} tok/s); "
+          f"mean TTFT {sum(ttfts) / max(len(ttfts), 1) * 1e3:.1f}ms; "
+          f"dispatches {eng.stats['dispatches']}")
+    print("sample output:", done[0].out[:16])
+
+
+def _run_lockstep(cfg, params, args):
+    """Every slot decodes in lockstep from one random token (contiguous
+    cache, one host sync per step for the sampled token)."""
+    codec = codec_params = None
+    if args.codec != "none":
+        codec = _serving_codec(args.codec, cfg.d_model, args.R, args.batch)
+        codec_params = codec.init(torch.Generator().manual_seed(7),
+                                  device=args.device)
+    cache = lm_lib.init_decode_cache(params, cfg, args.batch, args.cache_len)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    rng = np.random.RandomState(args.seed + 1)
+    tokens = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (args.batch, 1))).to(args.device)
+    t0 = time.time()
+    outs = [tokens]
+    wire_total = 0
+    for t in range(args.steps):
+        logits, cache = lm_lib.decode_step(params, cache, tokens, t, cfg,
+                                           codec=codec, codec_params=codec_params)
+        if args.greedy:
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+        else:
+            probs = torch.softmax(logits[:, -1].float(), dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        tokens = nxt[:, None]
+        if codec is not None:
+            wire_total += codecs.payload_wire_bytes(
+                codec, codec.payload_shape(args.batch))
+        outs.append(tokens)
+    _sync(args.device)
+    dt = time.time() - t0
+    seq = torch.cat(outs, dim=1)
+    print(f"arch={cfg.name} batch={args.batch} steps={args.steps} "
+          f"codec={codec.spec() if codec is not None else 'none'} "
+          f"R={getattr(codec, 'R', 1)} device={args.device}")
+    print(f"decoded {args.steps} tokens/seq in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s total)")
+    print("sample token ids:", seq[0, :16].tolist())
+    if codec is not None:
+        base = args.steps * args.batch * cfg.d_model * 4
+        print(f"cut-layer wire bytes: {wire_total} over {args.steps} steps "
+              f"vs vanilla {base} ({base / max(wire_total, 1):.1f}x compression)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default: the card) or 'cpu'")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--codec", default="none",
+                    help="registry spec, e.g. 'c3sl:R=4|int8' or "
+                         "'c3sl:R=4,backend=pallas' (the CUDA kernels)")
+    ap.add_argument("--R", type=int, default=4,
+                    help="default R for specs that omit it")
+    ap.add_argument("--quant-kv", action="store_true",
+                    help="int8 KV cache (2x less cache memory than bf16)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine (chunked prefill + "
+                         "device-resident slot state) instead of the "
+                         "lockstep decode loop")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--chunk-size", type=int, default=16)
+    ap.add_argument("--sync-every", type=int, default=8)
+    ap.add_argument("--prefill-mode", choices=["chunked", "decode"],
+                    default="chunked",
+                    help="'decode' = the legacy prefill-as-decode baseline "
+                         "(not ported yet)")
+    ap.add_argument("--kv-layout", choices=["contiguous", "paged"],
+                    default="contiguous",
+                    help="'paged' = shared page pool + per-slot page tables")
+    ap.add_argument("--kv-read", choices=["gather", "kernel"], default="gather",
+                    help="paged decode reads: 'gather' (contiguous view) or "
+                         "'kernel' (the CUDA paged-attention kernel)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="cache positions per page (paged layout)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="physical pages in the pool (default: fully "
+                         "provisioned = slots * ceil(max_len/page_size))")
+    ap.add_argument("--interleave", type=int, default=0,
+                    help="decode steps interleaved after each prefill chunk "
+                         "(0 = prefill admitted prompts to completion)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.quant_kv:
+        cfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    params = lm_lib.init_lm_params(args.seed, cfg, device=args.device)
+    if args.engine:
+        _run_engine(cfg, params, args)
+    else:
+        _run_lockstep(cfg, params, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,8 +14,12 @@ from repro_torch.kernels import circconv, ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# float32 against a float64 oracle: 1e-5 (tests/test_kernels.py:38); bf16 5e-2
-TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+# float32 against a float64 oracle: 1e-5 elementwise (tests/test_kernels.py:38).
+# bfloat16 outputs are rounded once (half an ulp, at most 2^-8 of the
+# element), so their limits scale with the compared values: max|err| within
+# 1e-2 of max|want|, and 5e-3 in relative L2.
+TOL = {torch.float32: 1e-5}
+BF16_REL_MAX, BF16_REL_L2 = 1e-2, 5e-3
 SHAPES = [(1, 1, 64), (3, 5, 96), (16, 16, 128), (16, 4, 2048), (4, 3, 127),
           (2, 2, 4097)]
 
@@ -35,9 +39,18 @@ def _data(G, R, D, dev, seed=0):
     return Z, K
 
 
-def _close(got, want, tol):
-    err = (got.double() - want.double()).abs()
-    assert bool((err <= tol + tol * want.double().abs()).all()), float(err.max())
+def _close(got, want, dtype, tol=None):
+    """bfloat16 against the scaled limits; otherwise elementwise within
+    ``tol`` (default TOL[dtype]) plus ``tol`` of the value."""
+    want = want.double()
+    err = (got.double() - want).abs()
+    if dtype == torch.bfloat16:
+        rel_max = float(err.max() / want.abs().max())
+        rel_l2 = float(err.norm() / want.norm())
+        assert rel_max <= BF16_REL_MAX and rel_l2 <= BF16_REL_L2, (rel_max, rel_l2)
+        return
+    tol = TOL[dtype] if tol is None else tol
+    assert bool((err <= tol + tol * want.abs()).all()), float(err.max())
 
 
 @pytest.mark.parametrize("G,R,D", SHAPES)
@@ -48,9 +61,9 @@ def test_kernels_match_plain_on_card(dev, G, R, D, dtype):
     Z = Z.to(dtype)
     before = dict(circconv.LAUNCHES)
     S = circconv.bind_superpose_kernel(Z, kext)
-    _close(S, circconv.bind_superpose_plain(Z.double(), kext.double()), TOL[dtype])
+    _close(S, circconv.bind_superpose_plain(Z.double(), kext.double()), dtype)
     Zh = circconv.unbind_kernel(S, kext)
-    _close(Zh, circconv.unbind_plain(S.double(), kext.double()), TOL[dtype])
+    _close(Zh, circconv.unbind_plain(S.double(), kext.double()), dtype)
     torch.cuda.synchronize()
     assert S.dtype == dtype and Zh.dtype == dtype and Zh.shape == (G, R, D)
     assert circconv.LAUNCHES["bind_superpose"] == before["bind_superpose"] + 1
@@ -64,7 +77,8 @@ def test_autograd_functions_on_card(dev):
     dS = torch.randn(16, 2048, device=dev)
     gz, gk = torch.autograd.grad((ops.bind_superpose_pallas(Z, K) * dS).sum(), [Z, K],
                                  allow_unused=True, materialize_grads=True)
-    _close(gz, circconv.unbind_plain(dS.double(), ops._kext(K).double()), 1e-4)
+    _close(gz, circconv.unbind_plain(dS.double(), ops._kext(K).double()),
+           torch.float32, tol=1e-4)
     assert (gk == 0).all()
 
 

@@ -1,0 +1,283 @@
+"""The port's continuous-batching engine held against the reference engine on
+the same weights and codec keys: greedy outputs token for token, and the
+integer stats (dispatches, decode_steps, prefill_chunks, wire_bytes_fwd)
+and pool accounting exactly, over the kv_layout x kv_read combinations.
+Also the loud gating of the kernel read and of what is not ported yet, and
+the serve CLI on the CPU."""
+import dataclasses
+import functools
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.codecs import build as jbuild  # noqa: E402
+from repro.configs import base as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.serving import engine as jengine  # noqa: E402
+from repro_torch.configs import base as tconfigs  # noqa: E402
+from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.serving import engine as tengine  # noqa: E402
+
+OVERRIDES = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=128,
+                 num_heads=4, num_kv_heads=2, head_dim=32)
+STAT_KEYS = ("dispatches", "decode_steps", "prefill_chunks",
+             "payload_wire_bytes", "wire_bytes_fwd", "wire_bytes_bwd")
+# prompt lengths straddle the page boundary (8); 6 requests on 4 slots, so
+# slots recycle mid-flight and a freed page set is reallocated
+LENS = [7, 8, 9, 3, 12, 5]
+ENGINE_KW = dict(num_slots=4, max_len=32, chunk_size=8, sync_every=4,
+                 page_size=8, greedy=True, seed=0)
+# bfloat16 weights: greedy tokens equal up to an argmax flip
+BF16_PREFIX = 3       # leading tokens every request must share
+BF16_SHARE = 0.75     # share of all generated tokens that must be equal
+
+
+def _cfgs(variant):
+    over = dict(OVERRIDES)
+    if variant == "swa":
+        over["sliding_window"] = 8
+    elif variant in ("int8", "bf16-int8"):
+        over["kv_cache_quant"] = True
+    return (jconfigs.reduced(jconfigs.get_config("deepseek-7b"), **over),
+            tconfigs.reduced(tconfigs.get_config("deepseek-7b"), **over))
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(variant):
+    """Float32 weights, or bfloat16 ones for "bf16-int8" (served, in both
+    engines, over an int8 KV cache)."""
+    jcfg, tcfg = _cfgs(variant)
+    dtype = jax.numpy.bfloat16 if variant.startswith("bf16") else jax.numpy.float32
+    pj = jlm.init_lm_params(jax.random.PRNGKey(0), jcfg, dtype=dtype)
+    return jcfg, tcfg, pj, params_from_numpy(jax.tree.map(np.asarray, pj), "cpu")
+
+
+def _prompts(vocab):
+    rng = np.random.RandomState(7)
+    return [[int(t) for t in rng.randint(1, vocab, n)] for n in LENS]
+
+
+def _codec_params(spec, d_model):
+    """The reference's codec keys, for both engines."""
+    if spec is None:
+        return None, None
+    pj = jbuild(spec, D=d_model).init(jax.random.PRNGKey(3))
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), "cpu")
+
+
+def _drive(eng, req_cls, vocab, max_new=6):
+    for uid, p in enumerate(_prompts(vocab)):
+        eng.submit(req_cls(uid=uid, prompt=list(p), max_new_tokens=max_new))
+    outs = {r.uid: r.out for r in eng.run()}
+    return outs, {k: eng.stats[k] for k in STAT_KEYS}, eng.pool_accounting()
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(variant, kv_layout, codec):
+    jcfg, _, pj, _ = _weights(variant)
+    cpj, _ = _codec_params(codec, jcfg.d_model)
+    eng = jengine.BatchedEngine(pj, jcfg, kv_layout=kv_layout,
+                                codec=codec or "none", codec_params=cpj,
+                                **ENGINE_KW)
+    return _drive(eng, jengine.Request, jcfg.vocab_size)
+
+
+def _port_engine(variant, kv_layout, kv_read, codec, **over):
+    jcfg, tcfg, _, pt = _weights(variant)
+    _, cpt = _codec_params(codec, jcfg.d_model)
+    kw = dict(ENGINE_KW, **over)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the kernel read warns by design
+        return tengine.BatchedEngine(pt, tcfg, kv_layout=kv_layout,
+                                     kv_read=kv_read, codec=codec or "none",
+                                     codec_params=cpt, **kw)
+
+
+@pytest.mark.parametrize("variant,codec", [
+    ("plain", None), ("plain", "c3sl:R=2"), ("swa", "c3sl:R=2"),
+    ("int8", "c3sl:R=2"), ("plain", "c3sl:R=4|int8")])
+@pytest.mark.parametrize("kv_layout,kv_read", [
+    ("contiguous", "gather"), ("paged", "gather"), ("paged", "kernel")])
+def test_engine_matches_reference_engine(variant, codec, kv_layout, kv_read):
+    """The reference's kernel read is bit-identical to its gather read
+    (tests/test_paged_kernel.py), so the port's kernel read is held against
+    the reference's paged gather run."""
+    want_out, want_stats, want_pool = _reference_run(variant, kv_layout, codec)
+    eng = _port_engine(variant, kv_layout, kv_read, codec)
+    out, stats, pool = _drive(eng, tengine.Request, eng.cfg.vocab_size)
+    assert out == want_out
+    assert stats == want_stats
+    assert pool == want_pool
+    assert len(out) == len(LENS) and all(len(o) == 6 for o in out.values())
+
+
+@pytest.mark.parametrize("kv_layout,kv_read", [
+    ("contiguous", "gather"), ("paged", "gather"), ("paged", "kernel")])
+def test_bf16_engine_matches_reference_engine(kv_layout, kv_read):
+    """bfloat16 weights over an int8 KV cache, as the reference serves them.
+    In bfloat16 the two sides' logits differ by about 1% of max|logit| (the
+    roundings of XLA:CPU and PyTorch fall differently), which can flip a
+    greedy argmax, and the sequences part from there.  So the integer stats
+    and the pool are exact, every request's first BF16_PREFIX tokens equal,
+    and at least BF16_SHARE of all tokens equal."""
+    want_out, want_stats, want_pool = _reference_run("bf16-int8", kv_layout,
+                                                     "c3sl:R=2")
+    eng = _port_engine("bf16-int8", kv_layout, kv_read, "c3sl:R=2")
+    assert eng.cache["stack"]["l0_0_attn"]["k"].dtype == torch.int8
+    out, stats, pool = _drive(eng, tengine.Request, eng.cfg.vocab_size)
+    assert stats == want_stats
+    assert pool == want_pool
+    assert all(len(out[u]) == len(want_out[u]) == 6 for u in want_out)
+    assert all(out[u][:BF16_PREFIX] == want_out[u][:BF16_PREFIX] for u in want_out)
+    same = sum(a == b for u in want_out for a, b in zip(out[u], want_out[u]))
+    assert same >= BF16_SHARE * 6 * len(LENS), same
+
+
+def test_bf16_model_over_float_cache_raises_like_the_reference():
+    """The float KV cache is float32 in both engines; a bfloat16 model over
+    it promotes the residual stream mid-stack, which the reference's scan
+    rejects on the first prefill, and which the port refuses at once."""
+    jcfg, _, pj, pt = _weights("bf16-int8")
+    jcfg = dataclasses.replace(jcfg, kv_cache_quant=False)
+    tcfg = _cfgs("plain")[1]
+    jeng = jengine.BatchedEngine(pj, jcfg, kv_layout="paged", **ENGINE_KW)
+    jeng.submit(jengine.Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+    with pytest.raises(TypeError, match="carry"):
+        jeng.run()
+    with pytest.raises(NotImplementedError, match="kv_cache_quant=True"):
+        tengine.BatchedEngine(pt, tcfg, kv_layout="paged", **ENGINE_KW)
+
+
+def test_engine_interleave_and_eos_match_reference():
+    """interleave > 0 (a prefill chunk, then a short decode window) and an
+    eos_id that ends some requests early."""
+    jcfg, tcfg, pj, pt = _weights("plain")
+    want = _drive(jengine.BatchedEngine(pj, jcfg, kv_layout="paged",
+                                        interleave=2, eos_id=5, **ENGINE_KW),
+                  jengine.Request, jcfg.vocab_size, max_new=10)
+    got = _drive(_port_engine("plain", "paged", "kernel", None, interleave=2,
+                              eos_id=5),
+                 tengine.Request, tcfg.vocab_size, max_new=10)
+    assert got == want
+
+
+def test_starved_pool_exits_windows_early_like_the_reference():
+    """An oversubscribed pool: admission waits (FIFO) for pages, and decode
+    windows stop at the first finished slot so its pages free at once.  A
+    (3 pages) finishes after 2 tokens while C (7 pages) decodes on; B needs
+    12 of the 4 free pages, so A's finish must cut the window short."""
+    jcfg, tcfg, pj, pt = _weights("plain")
+    kw = dict(ENGINE_KW, num_slots=2, max_len=64, page_size=4, num_pages=14,
+              sync_every=32)
+    reqs = [(0, [1] * 8, 2), (1, [2] * 4, 24), (2, [3] * 8, 40)]
+
+    def drive(eng, req_cls):
+        for uid, prompt, max_new in reqs:
+            eng.submit(req_cls(uid=uid, prompt=prompt, max_new_tokens=max_new))
+        outs = {r.uid: r.out for r in eng.run()}
+        return outs, {k: eng.stats[k] for k in STAT_KEYS}, eng.pool_accounting()
+
+    jeng = jengine.BatchedEngine(pj, jcfg, kv_layout="paged", **kw)
+    want = drive(jeng, jengine.Request)
+    teng = _port_engine("plain", "paged", "kernel", None, **kw)
+    got = drive(teng, tengine.Request)
+    assert got == want
+    assert teng.stats["eos_early_exits"] == jeng.stats["eos_early_exits"] > 0
+
+
+# ---------------------------------------------------------------------------
+# loud gating and execution modes
+# ---------------------------------------------------------------------------
+
+def test_kernel_requires_paged_layout():
+    _, tcfg, _, pt = _weights("plain")
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        tengine.BatchedEngine(pt, tcfg, kv_layout="contiguous", kv_read="kernel")
+
+
+def test_kernel_requires_attn_layers():
+    _, tcfg, _, pt = _weights("plain")
+    cfg = dataclasses.replace(tcfg, block_pattern=(("mamba", "mlp"),))
+    with pytest.raises(ValueError, match="no attn sublayer"):
+        tengine.BatchedEngine(pt, cfg, kv_layout="paged", kv_read="kernel")
+
+
+def test_uncovered_reads_warn_loudly():
+    _, tcfg, _, pt = _weights("plain")
+    with pytest.warns(UserWarning, match="stay on the gather read path"):
+        tengine.BatchedEngine(pt, tcfg, kv_layout="paged", kv_read="kernel")
+
+
+def test_execution_modes_in_stats():
+    eng = _port_engine("plain", "paged", "kernel", None)
+    assert eng.stats["kv_read"] == "kernel"
+    assert eng.stats["kv_read_execution_mode"] == "torch-plain"
+    assert eng.stats["codec_execution_mode"] == "none"
+    eng = _port_engine("plain", "paged", "gather", "c3sl:R=2")
+    assert eng.stats["kv_read_execution_mode"] == "gather"
+    assert eng.stats["codec_execution_mode"] == "fft"
+    eng = _port_engine("plain", "paged", "gather", "c3sl:R=2,backend=pallas")
+    assert eng.stats["codec_execution_mode"] == "torch-plain"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(prefill_mode="decode"), "slice 5"),
+    (dict(preemption=True), "slice 5"),
+    (dict(spec_decode=True), "slice 5"),
+    (dict(codec="adaptive:c3sl:R=4,min_R=2"), "slice 3"),
+    (dict(codec="c3sl:R=4 >> bwd:c3sl:R=2"), "slice 3")])
+def test_unported_options_raise(kw, match):
+    _, tcfg, _, pt = _weights("plain")
+    with pytest.raises(NotImplementedError, match=match):
+        tengine.BatchedEngine(pt, tcfg, **kw)
+
+
+def test_unported_methods_raise():
+    eng = _port_engine("plain", "paged", "gather", None)
+    for call in (lambda: eng.withdraw(0), eng.pop_stream_events,
+                 lambda: eng.attach_sanitizer(None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
+            call()
+
+
+def test_submit_rejects_what_the_reference_rejects():
+    eng = _port_engine("plain", "paged", "gather", None, num_pages=2)
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit(tengine.Request(uid=0, prompt=[]))
+    with pytest.raises(ValueError, match="no decode positions"):
+        eng.submit(tengine.Request(uid=1, prompt=[1] * 32))
+    with pytest.raises(ValueError, match="cache pages"):
+        eng.submit(tengine.Request(uid=2, prompt=[1] * 20, max_new_tokens=4))
+
+
+def test_cache_bytes_match_reference():
+    jcfg, tcfg, pj, pt = _weights("int8")
+    for layout in ("contiguous", "paged"):
+        jeng = jengine.BatchedEngine(pj, jcfg, kv_layout=layout, **ENGINE_KW)
+        teng = _port_engine("int8", layout, "gather", None)
+        assert teng.cache_bytes == jeng.cache_bytes
+
+
+# ---------------------------------------------------------------------------
+# the serve CLI on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("argv", [
+    ["--engine", "--kv-layout", "paged", "--kv-read", "kernel",
+     "--requests", "3", "--prompt-len", "6", "--max-new", "3",
+     "--chunk-size", "4", "--cache-len", "32", "--codec", "c3sl:R=2"],
+    ["--steps", "3", "--cache-len", "16", "--codec", "c3sl:R=2,backend=pallas",
+     "--quant-kv"]])
+def test_serve_cli_runs_on_the_cpu(argv, capsys):
+    from repro_torch.launch import serve
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        serve.main(["--arch", "deepseek-7b", "--reduced", "--batch", "2",
+                    "--greedy", "--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    assert "arch=deepseek-7b" in out and "cut-layer wire" in out
