@@ -13,10 +13,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    Float32 is held elementwise to 1e-5 (plus 1e-5 of the value);
    bfloat16, which the kernels round once on output, to 1e-2 of the
    compared values' max|want| and 5e-3 in relative L2.
-   - bind and unbind in float32 and bfloat16 over the reference's test
-     shapes, the main-path shapes and ragged D; the autograd Functions'
-     gradients against autograd of the plain version (1e-4); zero key
-     gradient;
+   - bind and unbind in float32 and bfloat16, through the kernel that
+     ``circconv.route(D)`` picks (the FFT-form kernels for a power of two
+     D in [4, 16384], the direct ones otherwise; each call's route is
+     checked on ``ROUTE_LAUNCHES``): the reference's test shapes, the
+     main-path shapes, ragged D, and the FFT kernels' edges (R 1, 5, 8, 9,
+     16; G 1, 2, 128; D 4 to 32, the route's upper limit 16384 and twice
+     it, which goes direct); the direct kernels called explicitly at the
+     main-path shapes; two runs of each FFT kernel bitwise equal; the
+     autograd Functions' gradients against autograd of the plain version
+     (1e-4); zero key gradient;
    - the two paged-attention decode kernels in float32, bfloat16 and over
      int8 pools (in float32 and in bfloat16 compute): the geometry of
      tests/test_paged_kernel.py (shuffled
@@ -29,8 +35,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``c3sl:R=4,backend=pallas`` with Adam at 1e-4 on the synthetic images.
    Step 0's loss and gradients must match ``backend=direct`` on the same
    weights; then 20 steps with a finite loss and exactly 2 bind and 2
-   unbind launches per step; then 3 steps through ``|int8`` and 3 steps of
-   ResNet-50/CIFAR-100 (D=4096), counted the same way.
+   unbind launches per step, every one on the FFT route; then 3 steps
+   through ``|int8`` and 3 steps of ResNet-50/CIFAR-100 (D=4096), counted
+   the same way.
 4. The serving path: ``deepseek-7b`` at full width and depth (30 layers,
    d_model 4096, 32 heads of 128; random float32 weights from the seed)
    behind ``BatchedEngine(kv_layout="paged", kv_read="kernel")`` with the
@@ -43,7 +50,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    - The engine run: every request completes, every logit is finite, the
      execution mode is ``cuda-kernel``, the paged kernel launches exactly
      30 times per decode step, and bind and unbind each launch once per
-     decode step and once per prefill chunk.
+     decode step and once per prefill chunk, on the FFT route.
    - A gather-read run of the same requests: the share of generated tokens
      on which the two agree (not gated: an argmax may flip within the
      tolerance).
@@ -52,9 +59,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. Times (CUDA events around runs of back-to-back calls, the median of at
    least 20 runs after warm-up).  Every kernel, plain version and library
    call is enqueued behind a sleep kernel, so its time is the device's
-   alone (each kernel's host-inclusive time is kept beside it): each
-   circconv kernel at the training shapes, its plain version and the
-   torch.fft route of the same function (the library yardstick); each paged
+   alone (each kernel's host-inclusive time is kept beside it): bind and
+   unbind at the training shapes (16, 4, 2048) and (16, 4, 4096), the
+   serving shapes (2, 4, 4096) and (128, 4, 4096) and the
+   ``BENCH_roofline.json`` circconv shapes (B 64, R 4, D 256 and 1024),
+   each through the FFT kernel, the direct kernel, its plain version and
+   the torch.fft route of the same function (the library yardstick); each paged
    kernel at the serving shape with positions 128-160, its plain version
    and, for the float kernel, gather_pages followed by
    ``scaled_dot_product_attention``.  Host included: the VGG-16 train step
@@ -74,6 +84,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -98,6 +109,19 @@ SHORT_STEPS = 3
 KERNEL_SHAPES = [(1, 1, 64), (2, 2, 128), (4, 4, 128), (8, 2, 256), (3, 5, 96),
                  (16, 16, 128), (2, 8, 512), (16, 4, 2048), (16, 4, 4096),
                  (4, 3, 127), (2, 2, 4097)]
+# the FFT kernels' edges: R 1, 5, 8, 9, 16 (bind's cluster is min(R, 8)
+# blocks, block 0 then takes two keys); G 1, 2 (decode), 128 (prefill
+# chunk); D from 4, the route's upper limit 16384 and twice it (direct)
+FFT_EDGE_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
+                   (2, 16, 4096), (1, 4, 4096), (2, 4, 4096), (128, 4, 4096),
+                   (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384),
+                   (1, 1, 32768)]
+# the direct kernels, called explicitly at the main-path shapes
+DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
+# phase 5: training, serving (decode, prefill chunk) and BENCH_roofline.json
+# circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
+TIME_SHAPES = [(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
+               (16, 4, 256), (16, 4, 1024)]
 TOL = {"float32": 1e-5}
 # bfloat16 outputs are rounded once, by half an ulp (at most 2^-8 of the
 # element, 2^-8/sqrt(3) in RMS), so their limits scale with the compared
@@ -197,6 +221,24 @@ def close_as(got, want, dtype_name, kernel) -> tuple[bool, float]:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def circconv_pair(name, kernel_route, x, kext):
+    """(kernel output, float64 plain output) of bind or unbind through the
+    named route's kernel, checking that exactly that kernel launched."""
+    import torch
+    from repro_torch.kernels import circconv
+    on, plain = {"bind_superpose": (circconv._bind_superpose_on,
+                                    circconv.bind_superpose_plain),
+                 "unbind": (circconv._unbind_on, circconv.unbind_plain)}[name]
+    before = dict(circconv.ROUTE_LAUNCHES)
+    got = on(kernel_route, x, kext)
+    want = plain(x.double(), kext.double())
+    torch.cuda.synchronize()
+    after = dict(circconv.ROUTE_LAUNCHES)
+    check(all(after[k] - before[k] == (k == (name, kernel_route)) for k in after),
+          f"{name} {tuple(x.shape)} via {kernel_route}: launches {before} -> {after}")
+    return got, want
+
+
 def kernel_checks(dev) -> dict:
     """Each kernel against its plain version on the same values.  The plain
     version runs on float64 copies, so the difference is the kernel's own
@@ -206,30 +248,39 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels import circconv, ops
 
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"bind_superpose": {}, "unbind": {}}
-    for G, R, D in KERNEL_SHAPES:
+    errs = {"bind_superpose": {}, "unbind": {}, "bind_superpose_direct": {},
+            "unbind_direct": {}}
+    cases = ([(s, circconv.route(s[-1]), "") for s in KERNEL_SHAPES + FFT_EDGE_SHAPES]
+             + [(s, "direct", "_direct") for s in DIRECT_SHAPES])
+    for (G, R, D), kernel_route, suffix in cases:
         K = hrr.generate_keys(gen, R, D, device=dev)
         kext = ops._kext(K)
-        k64 = kext.double()
         Z32 = torch.randn((G, R, D), generator=gen).to(dev)
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             Z = Z32.to(dt)
-            got = circconv.bind_superpose_kernel(Z, kext)
-            want = circconv.bind_superpose_plain(Z.double(), k64)
-            torch.cuda.synchronize()
+            got, want = circconv_pair("bind_superpose", kernel_route, Z, kext)
             check(got.dtype == dt and got.shape == (G, D), f"bind {G,R,D} {name}: "
                   f"{got.dtype} {tuple(got.shape)}")
-            ok, e = close_as(got, want, name, "bind_superpose")
-            check(ok, f"bind kernel != plain at {(G, R, D)} {name}: max err {e}")
-            errs["bind_superpose"][f"{G}x{R}x{D}/{name}"] = e
+            ok, e = close_as(got, want, name, "bind_superpose" + suffix)
+            check(ok, f"bind {kernel_route} kernel != plain at {(G, R, D)} {name}: "
+                  f"max err {e}")
+            errs["bind_superpose" + suffix][f"{G}x{R}x{D}/{name}"] = e
             S = want.to(dt)
-            got = circconv.unbind_kernel(S, kext)
-            want = circconv.unbind_plain(S.double(), k64)
-            torch.cuda.synchronize()
-            check(got.dtype == dt and got.shape == (G, R, D), f"unbind {G,R,D} {name}")
-            ok, e = close_as(got, want, name, "unbind")
-            check(ok, f"unbind kernel != plain at {(G, R, D)} {name}: max err {e}")
-            errs["unbind"][f"{G}x{R}x{D}/{name}"] = e
+            got_u, want = circconv_pair("unbind", kernel_route, S, kext)
+            check(got_u.dtype == dt and got_u.shape == (G, R, D),
+                  f"unbind {G,R,D} {name}")
+            ok, e = close_as(got_u, want, name, "unbind" + suffix)
+            check(ok, f"unbind {kernel_route} kernel != plain at {(G, R, D)} {name}: "
+                  f"max err {e}")
+            errs["unbind" + suffix][f"{G}x{R}x{D}/{name}"] = e
+            if kernel_route == "fft" and name == "float32":
+                again = (circconv.bind_superpose_kernel(Z, kext),
+                         circconv.unbind_kernel(S, kext))
+                torch.cuda.synchronize()
+                check(torch.equal(again[0], got) and torch.equal(again[1], got_u),
+                      f"fft kernels not bitwise repeatable at {(G, R, D)}")
+        del K, kext, Z32, Z, S, got, got_u, want
+        free_cuda()
 
     # gradients: each autograd Function's backward is the other kernel,
     # against autograd of the plain version (float64)
@@ -424,6 +475,19 @@ def step0_parity(model: str, spec: str, dev) -> dict:
             "grad_leaf_rel_err": gerr}
 
 
+def route_counts() -> dict:
+    """``circconv.ROUTE_LAUNCHES`` with string keys ("bind_superpose/fft")."""
+    from repro_torch.kernels import circconv
+    return {f"{k}/{r}": n for (k, r), n in circconv.ROUTE_LAUNCHES.items()}
+
+
+def check_fft_route(routes: dict, per_kernel: int, what: str):
+    """Every circconv launch went to the FFT kernels: ``per_kernel`` each."""
+    want = {f"{k}/{r}": per_kernel if r == "fft" else 0
+            for k in ("bind_superpose", "unbind") for r in ("fft", "direct")}
+    check(routes == want, f"{what}: circconv routes {routes}, want {want}")
+
+
 def run_steps(model: str, spec: str, steps: int, dev) -> dict:
     """``steps`` train steps from fresh weights, launch counts reset just
     before and read just after."""
@@ -444,14 +508,17 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
         losses.append(l)
     torch.cuda.synchronize()
     counts = dict(circconv.LAUNCHES)
+    routes = route_counts()
     losses = torch.stack(losses).tolist()
     check(all(map(math.isfinite, losses)), f"{model} {spec}: non-finite loss {losses}")
     want = {"bind_superpose": 2 * steps, "unbind": 2 * steps}
     check(counts == want, f"{model} {spec}: launches {counts}, want {want}")
+    check_fft_route(routes, 2 * steps, f"{model} {spec}")
     mode = getattr(codec, "transform", codec).execution_mode(dev)
     check(mode == "cuda-kernel", f"{spec} ran as {mode}, not the CUDA kernel")
     return {"model": model, "spec": codec.spec(), "steps": steps,
-            "batch": cfg.batch_size, "losses": losses, "launches": counts}
+            "batch": cfg.batch_size, "losses": losses, "launches": counts,
+            "route_launches": routes}
 
 
 # --------------------------------------------------------------------------
@@ -541,6 +608,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {**pa.LAUNCHES, **circconv.LAUNCHES}
+    routes = route_counts()
     outs = {r.uid: r.out for r in done}
     gen = sum(len(o) for o in outs.values())
     st = eng.stats
@@ -550,7 +618,8 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
            "total_tokens_per_s": (gen + n_req * SERVE_PROMPT) / wall,
            "mean_ttft_ms": statistics.mean(r.t_first - r.t_submit
                                            for r in done) * 1e3,
-           "finite_logits": finite[0], "launches": counts, "outs": outs,
+           "finite_logits": finite[0], "launches": counts,
+           "route_launches": routes, "outs": outs,
            **{k: st[k] for k in ("decode_steps", "prefill_chunks", "dispatches",
                                  "wire_bytes_fwd", "kv_read_execution_mode",
                                  "codec_execution_mode")}}
@@ -566,7 +635,7 @@ def check_serve_launches(rec, cfg, quant: bool):
     int8) once per attention layer per decode step, the other one never;
     bind and unbind once per decode step (8 slots / R 4 = 2 groups, one
     launch) and once per prefill chunk (64 positions x 2 groups, one
-    launch)."""
+    launch), all on the FFT route (D = 4096)."""
     name, other = (("paged_attention_quant", "paged_attention") if quant
                    else ("paged_attention", "paged_attention_quant"))
     steps, chunks = rec["decode_steps"], rec["prefill_chunks"]
@@ -575,6 +644,7 @@ def check_serve_launches(rec, cfg, quant: bool):
             "bind_superpose": steps + chunks, "unbind": steps + chunks}
     check(got == want, f"serve launches {got}, want {want} "
           f"({steps} decode steps, {chunks} prefill chunks)")
+    check_fft_route(rec["route_launches"], steps + chunks, "serve")
     check(rec["kv_read_execution_mode"] == "cuda-kernel",
           f"kv read ran as {rec['kv_read_execution_mode']}")
     check(rec["codec_execution_mode"] == "cuda-kernel",
@@ -755,7 +825,10 @@ def serving_path(dev) -> dict:
 # phase 5: times
 # --------------------------------------------------------------------------
 
-def kernel_times(dev, G=16, R=4, D=2048) -> dict:
+def kernel_times(dev, G, R, D) -> dict:
+    """bind and unbind at (G, R, D): the kernel ``route(D)`` picks (``ms``,
+    also host included), the FFT kernel where D is a power of two it takes,
+    the direct kernel, the plain version and the torch.fft route."""
     import torch
     from repro_torch.core import hrr
     from repro_torch.kernels import circconv, ops
@@ -771,25 +844,30 @@ def kernel_times(dev, G=16, R=4, D=2048) -> dict:
     # are the FFT form's (rfft of every data row and key, one complex
     # multiply-add per frequency and binding, an irfft per output row; a
     # real transform of length D at 2.5 D log2 D).  The direct O(D^2) form
-    # the kernels run (2 G R D^2 FLOPs) is kept beside it as a design figure.
+    # (2 G R D^2 FLOPs) is kept beside it as a design figure.
     fft_rows = G * R + G + R
     flops = fft_rows * 2.5 * D * math.log2(D) + G * R * (D // 2 + 1) * 8
     direct_flops = 2 * G * R * D * D
+    kernel_route = circconv.route(D)
     out = {}
-    for name, x, kernel, plain, fft, out_bytes in (
-            ("bind_superpose", Z, circconv.bind_superpose_kernel,
+    for name, x, on, plain, fft, out_bytes in (
+            ("bind_superpose", Z, circconv._bind_superpose_on,
              circconv.bind_superpose_plain,
              lambda: hrr._bind_impl(Z, K, KF, "fft"), G * D * 4),
-            ("unbind", S, circconv.unbind_kernel, circconv.unbind_plain,
+            ("unbind", S, circconv._unbind_on, circconv.unbind_plain,
              lambda: hrr._unbind_impl(S, K, KF, "fft"), G * R * D * 4)):
         nbytes = x.numel() * 4 + K.numel() * 4 + out_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_PEAK_FLOPS * 1e3
+        by_route = {r: cuda_ms(lambda r=r: on(r, x, kext))
+                    for r in circconv.ROUTES
+                    if r == "direct" or kernel_route == "fft"}
         out[name] = {
-            "shape": [G, R, D],
-            "ms": cuda_ms(lambda: kernel(x, kext)),
-            "ms_host_included": cuda_ms(lambda: kernel(x, kext),
+            "shape": [G, R, D], "route": kernel_route,
+            "ms": by_route[kernel_route],
+            "ms_host_included": cuda_ms(lambda: on(kernel_route, x, kext),
                                         hide_host=False),
+            "fft_ms": by_route.get("fft"), "direct_ms": by_route["direct"],
             "plain_ms": cuda_ms(lambda: plain(x, kext)),
             "library_ms": cuda_ms(fft),
             "bound_ms": max(t_bytes, t_ops),
@@ -982,15 +1060,18 @@ def main() -> int:
           flush=True)
     for name in sources:
         for line in build.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            entry = re.search(r"\d+([a-z][a-z_]*_kernel)I(\w+?)E", line)
+            if "Compiling entry" in line and entry:
+                print(f"  ptxas {name}: {entry[1]}<{entry[2].lstrip('0123456789')}>")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:   {line.strip()}")
 
     errs = kernel_checks(dev)
     print("kernels: " + "; ".join(
         f"{k} vs plain max_abs_err f32 "
         f"{max(e for s, e in v.items() if s.endswith('float32')):.3g} "
         f"bf16 {max(e for s, e in v.items() if s.endswith('bfloat16')):.3g} "
-        f"grad {max(e for s, e in v.items() if s.startswith('grad')):.3g}"
+        f"grad {max((e for s, e in v.items() if s.startswith('grad')), default=math.nan):.3g}"
         for k, v in errs.items()), flush=True)
     errs.update(paged_kernel_checks(dev))
     summary = {k: max(v.values()) for k, v in errs.items()}
@@ -1038,16 +1119,18 @@ def main() -> int:
           flush=True)
     lap("serving_path")
 
-    times = {"D2048": kernel_times(dev, 16, 4, 2048),
-             "D4096": kernel_times(dev, 16, 4, 4096)}
+    times = {f"{G}x{R}x{D}": kernel_times(dev, G, R, D) for G, R, D in TIME_SHAPES}
+    free_cuda()
     ptimes = paged_times(dev)
     steps = step_times(dev)
     prof = step_profile(dev)
     lap("times")
     for shape, per in times.items():
         for name, t in per.items():
-            print(f"time [{card}] {name} G,R,D={t['shape']}: kernel {t['ms']:.4f} ms "
-                  f"({t['ms_host_included']:.4f} host included), "
+            fft_ms = "-" if t["fft_ms"] is None else f"{t['fft_ms']:.4f} ms"
+            print(f"time [{card}] {name} G,R,D={t['shape']} route {t['route']}: "
+                  f"fft kernel {fft_ms}, direct kernel {t['direct_ms']:.4f} ms, "
+                  f"routed kernel host included {t['ms_host_included']:.4f} ms, "
                   f"plain {t['plain_ms']:.4f} ms, torch.fft {t['library_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), direct-form "
                   f"FLOPs at the f32 peak {t['direct_flops_ms']:.4f} ms", flush=True)
@@ -1102,25 +1185,55 @@ def main() -> int:
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
                 "paged_attention_quant": "src/repro/kernels/paged_attention.py:173"}
-    main_errs = {k: max(v["16x4x2048/float32"], v["grad 16x4x2048"])
-                 for k, v in errs.items() if k in ("bind_superpose", "unbind")}
-    # the serving shape, in the dtype each serving run calls the kernel with
-    main_errs["paged_attention"] = errs["paged_attention"]["main/float32"]
-    main_errs["paged_attention_quant"] = errs["paged_attention_quant"]["main/bfloat16"]
-    launches = {**main_run["launches"],
+    csrc = "src/repro_torch/kernels/csrc/"
+    # every kernel entry point: (record name, wrapper, circconv route, source)
+    entries = [("bind_superpose", "bind_superpose", "fft", "circconv_fft.cu"),
+               ("unbind", "unbind", "fft", "circconv_fft.cu"),
+               ("bind_superpose_direct", "bind_superpose", "direct", "circconv.cu"),
+               ("unbind_direct", "unbind", "direct", "circconv.cu"),
+               ("paged_attention", "paged_attention", None, "paged_attention.cu"),
+               ("paged_attention_quant", "paged_attention_quant", None,
+                "paged_attention.cu")]
+    # at the VGG-16 train step's shape; the direct kernels' errors from
+    # their explicit calls there, the FFT kernels' from the routed calls
+    # and the gradients
+    main_errs = {"bind_superpose": max(errs["bind_superpose"]["16x4x2048/float32"],
+                                       errs["bind_superpose"]["grad 16x4x2048"]),
+                 "unbind": max(errs["unbind"]["16x4x2048/float32"],
+                               errs["unbind"]["grad 16x4x2048"]),
+                 "bind_superpose_direct":
+                     errs["bind_superpose_direct"]["16x4x2048/float32"],
+                 "unbind_direct": errs["unbind_direct"]["16x4x2048/float32"],
+                 # the serving shape, in the dtype each serving run calls
+                 "paged_attention": errs["paged_attention"]["main/float32"],
+                 "paged_attention_quant":
+                     errs["paged_attention_quant"]["main/bfloat16"]}
+    launches = {"bind_superpose": main_run["route_launches"]["bind_superpose/fft"],
+                "unbind": main_run["route_launches"]["unbind/fft"],
+                "bind_superpose_direct":
+                    main_run["route_launches"]["bind_superpose/direct"],
+                "unbind_direct": main_run["route_launches"]["unbind/direct"],
                 "paged_attention": rk["launches"]["paged_attention"],
                 "paged_attention_quant": rq["launches"]["paged_attention_quant"]}
-    ktimes = {**times["D2048"], **ptimes}
+    vgg = times["16x4x2048"]
+
+    def timing(name, wrapper, kernel_route):
+        if kernel_route is None:
+            t = ptimes[wrapper]
+            return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
+        t = vgg[wrapper]
+        return {"ms": t[f"{kernel_route}_ms"],
+                **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     record = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/" + (
-             "paged_attention.cu" if name.startswith("paged") else "circconv.cu"),
-         "replaces": replaces[name],
-         "launches": launches[name],
-         "max_abs_err": main_errs[name],
-         **{k: ktimes[name][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
-        for name in replaces]}
+        {"name": name, "route": "cuda", "source": csrc + source,
+         "replaces": replaces[wrapper],
+         **({"circconv_route": kernel_route} if kernel_route else {}),
+         "launches": launches[name], "max_abs_err": main_errs[name],
+         **timing(name, wrapper, kernel_route)}
+        for name, wrapper, kernel_route, source in entries]}
     elapsed["total"] = time.perf_counter() - t_start
     print(f"elapsed s: {json.dumps({k: round(v, 1) for k, v in elapsed.items()})}",
           flush=True)

@@ -13,8 +13,10 @@ Keys K_i ~ N(0, 1/D), unit-normalized, FIXED (never trained): every op here
 detaches them.  Three backends: ``fft`` (O(D log D), torch.fft), ``direct``
 (the O(D^2) gather contraction of ``kernels.ref``) and ``pallas`` (the
 hand-written CUDA kernels of ``repro_torch.kernels``; the spec token keeps
-the reference's name).  ``pallas`` on a CUDA tensor always launches the kernel, for any D:
-unlike the TPU kernel it needs no aligned D, so there is no reroute to fft.
+the reference's name).  ``pallas`` on a CUDA tensor always launches a kernel,
+for any D (the FFT-form one or the direct one, by ``circconv.route(D)``):
+unlike the TPU kernel it needs no aligned D, so there is no reroute to the
+fft backend.
 """
 from __future__ import annotations
 

@@ -33,6 +33,10 @@ SIGNATURES = {
         "circconv_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
         "circconv_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "circconv_fft": {
+        "circconv_fft_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "circconv_fft_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
     "paged_attention": {
         "paged_attention_smem_bytes": [_I, _I],
         "paged_attention_float": [_P] * 6 + [_I] * 8 + [_F, _I, _P],

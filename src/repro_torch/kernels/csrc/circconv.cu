@@ -54,7 +54,8 @@
 // form's rate by shared-memory bandwidth.  Left for later: Toeplitz tiles
 // fed to the tensor cores (mma / wgmma in TF32 or bf16), TMA staging with
 // a multi-stage mbarrier pipeline, more outputs per thread to raise the
-// FMA-to-load ratio, or an FFT-form kernel that fuses the transforms.
+// FMA-to-load ratio.  The FFT-form kernels of circconv_fft.cu take every
+// power-of-two D up to 16384 (circconv.route); these take every other D.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -146,13 +146,13 @@ def test_wrapper_validates_before_launch():
         circconv.bind_superpose_kernel(Z.to("meta"), kext.to("meta"))
     out = torch.empty(2, 64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        circconv._launch("circconv_bind_superpose", "bind_superpose",
-                         Z.double(), kext, out, 2, 2, 64)
+        circconv._launch("bind_superpose", "direct", Z.double(), kext, out,
+                         2, 2, 64)
     with pytest.raises(TypeError, match="Kext must be float32"):
-        circconv._launch("circconv_bind_superpose", "bind_superpose",
-                         Z, kext.bfloat16(), out, 2, 2, 64)
+        circconv._launch("bind_superpose", "direct", Z, kext.bfloat16(), out,
+                         2, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
-        circconv._launch("circconv_unbind", "unbind", torch.zeros(64, 2).t(),
+        circconv._launch("unbind", "direct", torch.zeros(64, 2).t(),
                          kext, out, 2, 2, 64)
 
 
@@ -160,3 +160,49 @@ def test_execution_mode_follows_the_device():
     assert circconv.execution_mode("cpu") == "torch-plain"
     assert circconv.execution_mode("cuda") == "cuda-kernel"
     assert circconv.execution_mode(torch.device("cuda", 0)) == "cuda-kernel"
+
+
+@pytest.mark.parametrize("D,want", [
+    (1, "direct"), (2, "direct"), (3, "direct"), (4, "fft"), (8, "fft"),
+    (32, "fft"), (64, "fft"), (96, "direct"), (127, "direct"), (2048, "fft"),
+    (4096, "fft"), (4097, "direct"), (5120, "direct"), (12288, "direct"),
+    (16384, "fft"), (32768, "direct")])
+def test_route_picks_fft_for_powers_of_two_up_to_the_limit(D, want):
+    """The FFT kernels take every power of two in [4, 16384]; every other D
+    (ragged, the LM widths 5120 and 12288, past shared memory) goes to the
+    direct kernels.  By D alone."""
+    assert circconv.route(D) == want
+    assert (circconv.FFT_MIN_D, circconv.FFT_MAX_D) == (4, 16384)
+
+
+@pytest.mark.parametrize("kernel_route", ["fft", "direct"])
+def test_route_entry_points_run_the_plain_version_on_cpu(kernel_route):
+    Z, K = _data(2, 3, 64, seed=3)
+    Zt, kext = torch.from_numpy(Z), ops._kext(torch.from_numpy(K))
+    before = dict(circconv.ROUTE_LAUNCHES)
+    S = circconv._bind_superpose_on(kernel_route, Zt, kext)
+    Zh = circconv._unbind_on(kernel_route, S, kext)
+    assert torch.equal(S, circconv.bind_superpose_plain(Zt, kext))
+    assert torch.equal(Zh, circconv.unbind_plain(S, kext))
+    assert circconv.ROUTE_LAUNCHES == before   # CPU tensors never count
+
+
+def test_route_entry_points_refuse_what_their_kernel_does_not_take():
+    Z = torch.zeros(2, 2, 96)
+    kext = torch.zeros(2, 192)
+    with pytest.raises(ValueError, match="power of two"):
+        circconv._bind_superpose_on("fft", Z, kext)
+    with pytest.raises(ValueError, match="power of two"):
+        circconv._unbind_on("fft", Z[:, 0], kext)
+    with pytest.raises(ValueError, match="unknown route"):
+        circconv._bind_superpose_on("cufft", Z, kext)
+
+
+def test_reset_clears_route_counts():
+    circconv.ROUTE_LAUNCHES[("unbind", "fft")] += 3
+    circconv.LAUNCHES["unbind"] += 3
+    circconv.reset_launch_counts()
+    assert set(circconv.ROUTE_LAUNCHES) == {
+        (k, r) for k in ("bind_superpose", "unbind") for r in ("fft", "direct")}
+    assert not any(circconv.ROUTE_LAUNCHES.values())
+    assert not any(circconv.LAUNCHES.values())
