@@ -28,8 +28,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      tests/test_paged_kernel.py (shuffled
      tables, spare pages, staggered positions, a dead slot, lengths 16, 17
      and 23 at page size 8), the serving run's shape (B 8, T 512, page
-     size 16, 32 kv heads, head dim 128), GQA groups 4 and 16, and the
-     ring mask with wrapped positions.
+     size 16, 32 kv heads, head dim 128), GQA groups 4 and 16, the
+     ring mask with wrapped positions, and the split-K edges (one admitted
+     row, a prefix of one chunk of the plan and of one chunk + 1, slots
+     whose later chunks are empty, T 4096, chunks over which the tile ring
+     wraps, a batch that the plan gives one split, the ring at T 256, one
+     live slot at position 511, rows of 512 whose float32 tile ring is cut
+     to fit the shared memory), each with the plan's split count checked;
+     two calls bitwise equal at the serving shape and at one edge.
 3. The training path, with TF32 off for matmuls and cuDNN convolutions:
    the paper's VGG-16/CIFAR-10 split train step at B=64 through
    ``c3sl:R=4,backend=pallas`` with Adam at 1e-4 on the synthetic images.
@@ -65,8 +71,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``BENCH_roofline.json`` circconv shapes (B 64, R 4, D 256 and 1024),
    each through the FFT kernel, the direct kernel, its plain version and
    the torch.fft route of the same function (the library yardstick); each paged
-   kernel at the serving shape with positions 128-160, its plain version
-   and, for the float kernel, gather_pages followed by
+   kernel at the serving shape with positions 128-160 and with one live
+   slot at position 511 (with the wrapper's split plan, the share of the
+   bound and the host-included time), its plain version and, for the
+   float kernel, gather_pages followed by
    ``scaled_dot_product_attention``.  Host included: the VGG-16 train step
    with the kernel and the fft backend in turns, and a ``torch.profiler``
    breakdown of it; the serving engine's decode-step time, tokens/s and
@@ -378,11 +386,48 @@ def paged_pair(case, dtype, *, quant, window=None):
     return got, want
 
 
+def split_edge_shapes() -> list:
+    """The split-K edges of ``csrc/paged_attention.cu``, as
+    (label, geometry with positions, window): one admitted row (pos 0); a
+    prefix of exactly one chunk of the plan and one chunk + 1; slots whose
+    later chunks are all empty; a long T (4096) with many splits; chunks of
+    many tiles, so the three-tile ring wraps; a B*KV past the plan's block
+    target (one split: pass 1 writes the output); the ring with wrapped
+    positions; one live slot of the serving geometry at position 511;
+    rows of 512 in chunks of four tiles, whose float32 ring the set-up cuts
+    to one tile to fit the shared memory."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    base = dict(B=2, ps=16, H=4, KV=2, hd=128, length=512)
+    _, chunk = pa.split_plan(2, 2, 2, 128, 512, 16,
+                             pa.sm_count(torch.cuda.current_device()))
+    return [
+        ("split/n1", dict(base, pos=[0, 0]), None),
+        ("split/one_chunk", dict(base, pos=[chunk - 1, chunk - 2]), None),
+        ("split/chunk+1", dict(base, pos=[chunk, chunk - 1]), None),
+        ("split/later_empty", dict(base, B=4, pos=[511, 3, 40, 0]), None),
+        ("split/long_T", dict(B=2, ps=16, H=8, KV=4, hd=128, length=4096,
+                              pos=[4095, 1000]), None),
+        ("split/deep_ring", dict(MAIN_PAGED, length=2048,
+                                 pos=[2047, 1500, 700, 255, 256, 257, 95, 96]),
+         None),
+        ("split/S1", dict(B=72, ps=16, H=32, KV=32, hd=64, length=64), None),
+        ("split/ring", dict(B=4, ps=16, H=8, KV=2, hd=64, length=256,
+                            pos=[255, 300, 700, 10]), 256),
+        ("split/one_slot", dict(MAIN_PAGED, B=1, pos=[511]), None),
+        ("split/wide_rows", dict(B=4, ps=16, H=2, KV=2, hd=512, length=4096,
+                                 pos=[4095, 2000, 130, 0]), None)]
+
+
 def paged_kernel_checks(dev) -> dict:
     """Both paged kernels against their plain versions (float64 copies):
     float32 and bfloat16 pools through ``paged_attention``, int8 pools in
-    float32 and bfloat16 compute through ``paged_attention_quant``."""
+    float32 and bfloat16 compute through ``paged_attention_quant``, at the
+    reference's geometry, the serving shape, GQA groups, the ring and the
+    split-K edges; at the serving shape and one split edge, two calls
+    bitwise equal."""
     import torch
+    from repro_torch.kernels import paged_attention as pa
     rng = np.random.RandomState(SEED + 4)
     shapes = [(f"ps8/T{n}", dict(B=3, ps=8, H=4, KV=2, hd=16, length=n), None)
               for n in (16, 17, 23)]
@@ -393,10 +438,11 @@ def paged_kernel_checks(dev) -> dict:
     shapes.append(("ring", dict(B=4, ps=16, H=8, KV=4, hd=64, length=48,
                                 pos=[47, 53, 146, 10]), 48))
     errs = {"paged_attention": {}, "paged_attention_quant": {}}
-    for label, geo, window in shapes:
-        B, H, hd = geo["B"], geo["H"], geo["hd"]
-        for name, quant in (("paged_attention", False),
-                            ("paged_attention_quant", True)):
+    repeat = ("main", "split/later_empty")
+    for name, quant in (("paged_attention", False),
+                        ("paged_attention_quant", True)):
+        for label, geo, window in shapes + split_edge_shapes():
+            B, H, hd = geo["B"], geo["H"], geo["hd"]
             case = paged_case(rng, dev, quant=quant, **geo)
             for dt_name, dt in (("float32", torch.float32),
                                 ("bfloat16", torch.bfloat16)):
@@ -408,7 +454,20 @@ def paged_kernel_checks(dev) -> dict:
                 check(ok, f"{name} kernel != plain at {label} {dt_name}: "
                       f"max err {e}")
                 errs[name][f"{label}/{dt_name}"] = e
+                if label in repeat:
+                    again, _ = paged_pair(case, dt, quant=quant, window=window)
+                    torch.cuda.synchronize()
+                    check(torch.equal(again, got), f"{name} not bitwise "
+                          f"repeatable at {label} {dt_name}")
+            if label.startswith("split/"):
+                S, _ = pa.split_plan(B, geo["KV"], H // geo["KV"], hd,
+                                     geo["length"], geo["ps"],
+                                     pa.sm_count(torch.cuda.current_device()))
+                # S1 and deep_ring (8 x 32 blocks) fill the card in one split
+                check((S == 1) == (label in ("split/S1", "split/deep_ring")),
+                      f"{name} {label}: the plan gave {S} splits")
             del case
+            free_cuda()
     return errs
 
 
@@ -770,7 +829,20 @@ def decode_window_times(eng, windows=3) -> dict:
     if not busy:
         out["profile"] = None
         return out
-    paged = sum(t for k, t in rows.items() if "paged_attention_kernel" in k) / executed
+    # the two passes of a paged read: pass 2 is a programmatic dependent of
+    # pass 1 and its blocks wait on the card while pass 1 drains, so their
+    # kernel times overlap; the read's time is the union of their spans
+    paged_names = ("paged_attention_split_kernel", "paged_attention_combine_kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and any(n in e.name for n in paged_names))
+    paged, end = 0.0, -math.inf
+    for a, b in spans:
+        paged += max(0.0, b - max(a, end))
+        end = max(end, b)
+    paged = paged / 1e3 / executed
+    pass_ms = {n: sum(t for k, t in rows.items() if n in k) / executed
+               for n in paged_names}
     circ = sum(t for k, t in rows.items() if "bind_superpose_kernel" in k
                or "unbind_kernel" in k) / executed
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:12]
@@ -779,6 +851,7 @@ def decode_window_times(eng, windows=3) -> dict:
         "idle_share_profiled": 1 - busy / (wall_ms / executed),
         "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
         "paged_kernel_ms_per_step": paged, "paged_kernel_share": paged / busy,
+        "paged_pass_ms_per_step": pass_ms,
         "circconv_ms_per_step": circ, "device_ops_per_step": launches / executed,
         "top": [{"name": k[:90], "ms_per_step": t / executed} for k, t in top],
         # host self time by op (profiled, so inflated by the profiler)
@@ -879,73 +952,94 @@ def kernel_times(dev, G, R, D) -> dict:
     return out
 
 
+# phase 5's paged shapes: the serving run's decode read (8 slots, positions
+# spread over 128-160) and one live slot with the whole cache admitted
+PAGED_TIME_POS = {"serving": np.linspace(128, 160, 8).round().astype(np.int32),
+                  "one_slot": np.array([511], np.int32)}
+
+
+def paged_bound(rows, B, H, KV, hd, *, kv_bytes, q_bytes, quant) -> dict:
+    """The least time of one decode read over ``rows`` admitted positions
+    (summed over the slots): the bytes it must move (the admitted K/V rows
+    of ``kv_bytes``-byte elements and, over int8 pools, their float32
+    scales; q and the output, of ``q_bytes``) each crossing HBM once,
+    against its operations (4 per admitted row, head and dimension) at the
+    float32 peak; the larger of the two bounds it."""
+    nbytes = (rows * KV * 2 * (hd * kv_bytes + (4 if quant else 0))
+              + 2 * B * H * hd * q_bytes)
+    flops = 4 * rows * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "flops": flops}
+
+
 def paged_times(dev, sets=4) -> dict:
-    """Each paged kernel at the serving shape (B 8, T 512, page size 16,
-    KV = H = 32, head dim 128) with positions spread over 128-160: the float
+    """Each paged kernel at the serving geometry (T 512, page size 16, KV = H
+    = 32, head dim 128) at the two shapes of ``PAGED_TIME_POS``: the float
     kernel on float32 pools, the int8 kernel with bfloat16 q and compute,
     as the two serving runs call them.  Calls cycle through ``sets`` tables
-    over disjoint pages, so the rows they read (about 38 MB a call in
-    float32) are cold in the 50 MB L2 cache.  The bound is the least time
-    for the function's work: the K/V rows the mask admits (and their
-    scales), q and the output each cross HBM once; its operations (4 per
-    admitted row, head and dimension) take far less at the float32 peak.
-    The library yardstick of the float kernel is gather_pages followed by
-    ``scaled_dot_product_attention``; the int8 kernel has no single PyTorch
-    call that computes it."""
+    over disjoint pages, so the rows they read are cold in the 50 MB L2
+    cache, as each of the 30 layers' reads is on the serving path.  The
+    bound is ``paged_bound``'s, set by the bytes at these shapes.  The library yardstick of the float kernel is
+    gather_pages followed by ``scaled_dot_product_attention``; the int8
+    kernel has no single PyTorch call that computes it (SDPA takes no int8
+    K/V with per-row scales).  ``splits`` and ``chunk`` are the wrapper's
+    plan for the shape.  Returns {kernel: {shape: record}}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.attention import decode_mask
     from repro_torch.models.paging import gather_pages
-    g = MAIN_PAGED
-    B, T, H, KV, hd = g["B"], g["length"], g["H"], g["KV"], g["hd"]
-    pos = np.linspace(128, 160, B).round().astype(np.int32)
-    rows = int(sum(min(int(p), T - 1) + 1 for p in pos))
+    g = dict(MAIN_PAGED)
+    T, H, KV, hd = g["length"], g["H"], g["KV"], g["hd"]
     rng = np.random.RandomState(SEED + 5)
-    out = {}
-    for name, quant, dtype in (("paged_attention", False, torch.float32),
-                               ("paged_attention_quant", True, torch.bfloat16)):
-        case = paged_case(rng, dev, quant=quant, pos=pos, sets=sets, **g)
-        q, tabs, p = case["q"].to(dtype), case["tables"], case["pos"]
-        nxt = itertools.cycle(range(sets)).__next__
-        k, v = case["k"], case["v"]
-        if quant:
-            ks, vs = case["ks"], case["vs"]
-            kern = lambda: pa.paged_attention_quant(  # noqa: E731
-                q, k, ks, v, vs, tabs[nxt()], p, length=T)
-            plain = lambda: pa.paged_attention_quant_plain(  # noqa: E731
-                q, k, ks, v, vs, tabs[nxt()], p, length=T)
-            library = None
-            kv_bytes = rows * KV * (2 * hd + 2 * 4)     # int8 rows + f32 scales
-        else:
-            kern = lambda: pa.paged_attention(  # noqa: E731
-                q, k, v, tabs[nxt()], p, length=T)
-            plain = lambda: pa.paged_attention_plain(  # noqa: E731
-                q, k, v, tabs[nxt()], p, length=T)
+    out = {"paged_attention": {}, "paged_attention_quant": {}}
+    for shape, pos in PAGED_TIME_POS.items():
+        B = g["B"] = len(pos)
+        rows = int(sum(min(int(p), T - 1) + 1 for p in pos))
+        for name, quant, dtype in (("paged_attention", False, torch.float32),
+                                   ("paged_attention_quant", True, torch.bfloat16)):
+            case = paged_case(rng, dev, quant=quant, pos=pos, sets=sets, **g)
+            q, tabs, p = case["q"].to(dtype), case["tables"], case["pos"]
+            nxt = itertools.cycle(range(sets)).__next__
+            k, v = case["k"], case["v"]
+            if quant:
+                ks, vs = case["ks"], case["vs"]
+                kern = lambda: pa.paged_attention_quant(  # noqa: E731
+                    q, k, ks, v, vs, tabs[nxt()], p, length=T)
+                plain = lambda: pa.paged_attention_quant_plain(  # noqa: E731
+                    q, k, ks, v, vs, tabs[nxt()], p, length=T)
+                library = None
+            else:
+                kern = lambda: pa.paged_attention(  # noqa: E731
+                    q, k, v, tabs[nxt()], p, length=T)
+                plain = lambda: pa.paged_attention_plain(  # noqa: E731
+                    q, k, v, tabs[nxt()], p, length=T)
 
-            def library():
-                tab = tabs[nxt()]
-                kk = gather_pages(k, tab, T).transpose(1, 2)     # (B, KV, T, hd)
-                vv = gather_pages(v, tab, T).transpose(1, 2)
-                mask = decode_mask(p, T, None)[:, None, None, :]
-                return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
-                                                      attn_mask=mask)
-            kv_bytes = rows * KV * hd * 4 * 2
-        nbytes = kv_bytes + 2 * B * H * hd * q.element_size()
-        flops = 4 * rows * H * hd
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_PEAK_FLOPS * 1e3
-        out[name] = {
-            "shape": dict(g, pos=pos.tolist()), "dtype": str(dtype),
-            "ms": cuda_ms(kern),
-            "ms_host_included": cuda_ms(kern, hide_host=False),
-            "plain_ms": cuda_ms(plain),
-            "library_ms": None if library is None else cuda_ms(library),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bytes": nbytes, "flops": flops, "admitted_rows": rows}
-        del case, kern, plain, library
-        free_cuda()
+                def library():
+                    tab = tabs[nxt()]
+                    kk = gather_pages(k, tab, T).transpose(1, 2)   # (B, KV, T, hd)
+                    vv = gather_pages(v, tab, T).transpose(1, 2)
+                    mask = decode_mask(p, T, None)[:, None, None, :]
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kk, vv, attn_mask=mask)
+            bound = paged_bound(rows, B, H, KV, hd, kv_bytes=k.element_size(),
+                                q_bytes=q.element_size(), quant=quant)
+            splits, chunk = pa.split_plan(B, KV, H // KV, hd, T, g["ps"],
+                                          pa.sm_count(torch.cuda.current_device()))
+            ms = cuda_ms(kern)
+            out[name][shape] = {
+                "shape": dict(g, pos=pos.tolist()), "dtype": str(dtype),
+                "splits": splits, "chunk": chunk, "ms": ms,
+                "ms_host_included": cuda_ms(kern, hide_host=False),
+                "plain_ms": cuda_ms(plain),
+                "library_ms": None if library is None else cuda_ms(library),
+                **bound, "share_of_bound": bound["bound_ms"] / ms,
+                "admitted_rows": rows}
+            del case, kern, plain, library
+            free_cuda()
     return out
 
 
@@ -1134,13 +1228,20 @@ def main() -> int:
                   f"plain {t['plain_ms']:.4f} ms, torch.fft {t['library_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), direct-form "
                   f"FLOPs at the f32 peak {t['direct_flops_ms']:.4f} ms", flush=True)
-    for name, t in ptimes.items():
-        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"time [{card}] {name} B8 T512 ps16 KV32 hd128 {t['dtype']} pos "
-              f"128-160: kernel {t['ms']:.4f} ms ({t['ms_host_included']:.4f} "
-              f"host included), plain {t['plain_ms']:.4f} ms, "
-              f"gather+sdpa {lib}, bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
-              f"{t['bytes'] / 1e6:.1f} MB)", flush=True)
+    for name, per in ptimes.items():
+        for shape, t in per.items():
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms")
+            where = (f"B{t['shape']['B']} pos {min(t['shape']['pos'])}-"
+                     f"{max(t['shape']['pos'])}")
+            print(f"time [{card}] {name} {shape} ({where}) T512 ps16 KV32 "
+                  f"hd128 {t['dtype']}: kernel {t['ms']:.4f} ms "
+                  f"({t['ms_host_included']:.4f} host included), splits "
+                  f"{t['splits']} x chunk {t['chunk']}, plain "
+                  f"{t['plain_ms']:.4f} ms, gather+sdpa {lib}, bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}, "
+                  f"{t['bytes'] / 1e6:.1f} MB; {t['share_of_bound']:.1%} of it)",
+                  flush=True)
     print(f"time [{card}] vgg16 train step B=64 R=4: kernel backend "
           f"{steps['vgg16_step_ms_kernel']:.3f} ms, fft backend "
           f"{steps['vgg16_step_ms_fft']:.3f} ms", flush=True)
@@ -1172,7 +1273,9 @@ def main() -> int:
               f"ms/step, idle {wp['idle_share_vs_unprofiled_step']:.3f} of the "
               f"unprofiled step ({wp['idle_share_profiled']:.3f} profiled); paged "
               f"kernel {wp['paged_kernel_ms_per_step']:.4f} ms/step "
-              f"({wp['paged_kernel_share']:.4f} of device time); circconv "
+              f"({wp['paged_kernel_share']:.4f} of device time; passes "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in wp['paged_pass_ms_per_step'].items())}"
+              f" ms/step overlapping); circconv "
               f"{wp['circconv_ms_per_step']:.4f} ms/step; "
               f"{wp['device_ops_per_step']:.0f} device ops/step", flush=True)
         for r in wp["top"]:
@@ -1219,9 +1322,14 @@ def main() -> int:
 
     def timing(name, wrapper, kernel_route):
         if kernel_route is None:
-            t = ptimes[wrapper]
-            return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}
+            t = ptimes[wrapper]["serving"]
+            one = ptimes[wrapper]["one_slot"]
+            return {**{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "splits", "share_of_bound",
+                                         "ms_host_included")},
+                    "one_slot": {k: one[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms", "splits",
+                        "share_of_bound", "ms_host_included")}}
         t = vgg[wrapper]
         return {"ms": t[f"{kernel_route}_ms"],
                 **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",

@@ -15,6 +15,8 @@ in ms per call:
 - ``device``: CUDA events around 10 calls queued behind a sleep kernel, so
   the time is the device's alone; median of 21 runs.
 
+The timers are ``cuda_timing.py``'s, shared with the other scripts here.
+
 Give ``--src`` the ``src`` directory of another checkout to time its
 wrappers with this script; run two trees in one call, alternating
 (A B B A), to compare them on one card.  Needs one CUDA card and ``nvcc``
@@ -30,50 +32,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
-import subprocess
 import sys
-import time
 from pathlib import Path
 
+from cuda_timing import card_line, cuda_ms, enqueue_ms
+
 SHAPES = ((2, 4, 4096), (16, 4, 2048), (16, 4, 4096), (128, 4, 4096))
-REPS = 21
-SLEEP_CYCLES = 10_000_000
-
-
-def events_ms(fn, calls=10, behind_sleep=False) -> float:
-    import torch
-    times = []
-    cycles = SLEEP_CYCLES
-    while len(times) < REPS:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if behind_sleep:
-            torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        if behind_sleep and start.query():   # the sleep ended first: longer
-            end.synchronize()
-            cycles *= 2
-            continue
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def enqueue_ms(fn, calls=200) -> float:
-    import torch
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t0) * 1e3 / calls)
-    torch.cuda.synchronize()
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -90,9 +54,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import circconv
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -106,13 +68,10 @@ def main() -> int:
         for name, fn in (("bind_superpose",
                           lambda: circconv.bind_superpose_kernel(Z, kext)),
                          ("unbind", lambda: circconv.unbind_kernel(S, kext))):
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
             rows.append({"kernel": name, "shape": [G, R, D], "route": route,
-                         "host_included_ms": events_ms(fn),
+                         "host_included_ms": cuda_ms(fn, hide_host=False),
                          "host_enqueue_ms": enqueue_ms(fn),
-                         "device_ms": events_ms(fn, behind_sleep=True)})
+                         "device_ms": cuda_ms(fn)})
     print(json.dumps({"label": args.label, "src": args.src, "card": card,
                       "rows": rows}))
     return 0

@@ -25,7 +25,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # C entry points of each source: name -> argtypes (every one returns an
 # int: a cudaError_t, or a size).  Pointers and the stream go in as c_void_p.
 SIGNATURES = {
@@ -38,9 +37,9 @@ SIGNATURES = {
         "circconv_fft_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
-        "paged_attention_smem_bytes": [_I, _I],
-        "paged_attention_float": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
-        "paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+        "paged_attention_prepare": [_P, _I, _I, _I],
+        "paged_attention_float": [_P] * 8 + [_I, _I, _P],
+        "paged_attention_int8": [_P] * 10 + [_I, _I, _I, _P],
     },
 }
 

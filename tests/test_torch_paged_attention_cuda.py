@@ -204,3 +204,120 @@ def test_engine_execution_mode_on_card(dev):
     assert len(done) == 4 and all(len(r.out) == 5 for r in done)
     # one launch per attention layer per decode step
     assert pa.LAUNCHES["paged_attention"] == 2 * eng.stats["decode_steps"]
+
+
+# ---------------------------------------------------------------------------
+# split-K edges: the chunks of split_plan, the empty partials, the combine
+# ---------------------------------------------------------------------------
+
+def _plan(case, H, KV, hd, ps):
+    B = case["q"].shape[0]
+    return pa.split_plan(B, KV, H // KV, hd, case["length"], ps,
+                         pa.sm_count(torch.cuda.current_device()))
+
+
+def _split_case(edge, *, quant):
+    """(case, window) for one split edge; positions are set from the plan
+    where the edge is a chunk boundary."""
+    window = None
+    if edge == "long_T":            # T 4096: 32 splits of 4 tiles
+        geo, pos = (2, 16, 8, 4, 128, 4096), [4095, 1000]
+    elif edge == "S_is_1":          # B*KV past the plan's block target
+        geo, pos = (72, 16, 32, 32, 64, 64), None
+    elif edge == "ring":            # T = the window, wrapped positions
+        geo, pos, window = (4, 16, 8, 2, 64, 256), [255, 300, 700, 10], 256
+    elif edge == "deep_ring":       # one split of 64 tiles: the ring wraps
+        geo = (8, 16, 32, 32, 128, 2048)
+        pos = [2047, 1500, 700, 255, 256, 257, 95, 96]
+    elif edge == "later_chunks_empty":
+        geo, pos = (4, 16, 4, 2, 128, 512), [511, 3, 40, 0]
+    else:                           # n = 1, one chunk, one chunk + 1
+        geo, pos = (2, 16, 4, 2, 128, 512), None
+    B, ps, H, KV, hd, length = geo
+    case = make_case(B, ps, H, KV, hd, length, quant=quant, seed=len(edge))
+    S, chunk = _plan(case, H, KV, hd, ps)
+    assert (S == 1) == (edge in ("S_is_1", "deep_ring")), (edge, S, chunk)
+    if pos is None and edge != "S_is_1":
+        n = {"n_is_1": 1, "one_chunk": chunk, "chunk_plus_one": chunk + 1}[edge]
+        pos = [n - 1, max(n - 2, 0)]
+    if pos is not None:
+        case["pos"] = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return case, window
+
+
+SPLIT_EDGES = ["n_is_1", "one_chunk", "chunk_plus_one", "later_chunks_empty",
+               "long_T", "deep_ring", "S_is_1", "ring"]
+
+
+@pytest.mark.parametrize("edge", SPLIT_EDGES)
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_split_edges_match_plain(dev, edge, quant):
+    case, window = _split_case(edge, quant=quant)
+    got, want, dt = run_pair(case, torch.float32, quant=quant, window=window)
+    assert_close(got, want, dt)
+
+
+# (G, hd) -> each head block head_block returns: 1, 2, 4, 8, 16, two
+# blocks a group (G 32), and the widest rows of GB 8 and 4
+HEAD_BLOCKS = [(1, 128, 1), (2, 64, 2), (3, 64, 4), (8, 128, 8), (16, 128, 16),
+               (32, 128, 16), (5, 192, 8), (4, 512, 4)]
+
+
+@pytest.mark.parametrize("G, hd, gb", HEAD_BLOCKS)
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_every_head_block_matches_plain(dev, G, hd, gb, quant):
+    assert pa.head_block(G, hd) == gb
+    case = make_case(3, 16, 2 * G, 2, hd, 96, quant=quant, seed=G + hd)
+    got, want, dt = run_pair(case, torch.float32, quant=quant)
+    assert_close(got, want, dt)
+
+
+# (hd, pools, ring depth): chunks of four tiles (T 4096, four slots of two
+# kv heads, so the plan gives 32 splits of 128 on 132 SMs), whose float32
+# rows of 384 and 512 fit a ring of two tiles and of one in the shared
+# memory, and whose bfloat16 and int8 rows of 512 keep three
+WIDE_ROWS = [(384, "float32", 2), (512, "float32", 1), (512, "bfloat16", 3),
+             (512, "int8", 3)]
+
+
+@pytest.mark.parametrize("hd, pools, stages", WIDE_ROWS)
+def test_wide_rows_take_the_ring_that_fits(dev, hd, pools, stages):
+    quant = pools == "int8"
+    dtype = torch.bfloat16 if pools == "bfloat16" else torch.float32
+    case = make_case(4, 16, 2, 2, hd, 4096, quant=quant, seed=hd)
+    got, want, dt = run_pair(case, dtype, quant=quant)
+    assert_close(got, want, dt)
+    S, chunk = _plan(case, 2, 2, hd, 16)
+    assert S > 1 and chunk > 3 * pa.TILE_ROWS, (S, chunk)
+    kv_bytes = 1 if quant else dtype.itemsize
+    _, _, plan = pa.launch_plan(torch.cuda.current_device(), quant,
+                                case["q"].shape, case["k"].shape,
+                                case["table"].shape, case["pos"].shape,
+                                kv_bytes, case["length"])
+    assert (plan.splits, plan.chunk, plan.stages) == (S, chunk, stages)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_two_calls_are_bitwise_equal(dev, quant):
+    for edge in ("later_chunks_empty", "S_is_1"):
+        case, _ = _split_case(edge, quant=quant)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, _, _ = run_pair(case, dtype, quant=quant)
+            b, _, _ = run_pair(case, dtype, quant=quant)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (edge, dtype)
+
+
+def test_wrapper_rejects_unaligned_pools_and_wide_heads(dev):
+    case = make_case(2, 8, 4, 2, 16, 16)
+    q, k, v, tab, pos = (case[n] for n in ("q", "k", "v", "table", "pos"))
+    shifted = torch.empty(k.numel() + 1, device=dev)[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pa.paged_attention(q, shifted, v, tab, pos, length=16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pa.paged_attention(q, k, shifted, tab, pos, length=16)
+    wide = make_case(2, 8, 2, 2, 516, 16)
+    with pytest.raises(ValueError, match="over 512"):
+        pa.paged_attention(wide["q"], wide["k"], wide["v"], wide["table"],
+                           wide["pos"], length=16)
