@@ -19,7 +19,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      checked on ``ROUTE_LAUNCHES``): the reference's test shapes, the
      main-path shapes, ragged D, and the FFT kernels' edges (R 1, 5, 8, 9,
      16; G 1, 2, 128; D 4 to 32, the route's upper limit 16384 and twice
-     it, which goes direct); the direct kernels called explicitly at the
+     it, which goes direct), and every (G, R) the control plane's
+     (R_fwd, R_bwd) programs launch (phase 5) at D 2048 and 4096; the direct kernels called explicitly at the
      main-path shapes; two runs of each FFT kernel bitwise equal; the
      autograd Functions' gradients against autograd of the plain version
      (1e-4); zero key gradient;
@@ -62,7 +63,33 @@ Phases (any failure exits non-zero, and no result line is printed):
      tolerance).
    - Then bfloat16 weights with an int8 KV cache (8 requests, 16 new
      tokens), which drives ``paged_attention_quant``, checked the same way.
-5. Times (CUDA events around runs of back-to-back calls, the median of at
+5. The codec control plane, at full width, through the circconv kernels:
+   - step-0 parity of one asymmetric pair (R_fwd 4, R_bwd 2) on the VGG-16
+     step through the kernels against ``backend=fft`` on the card (loss,
+     every gradient leaf, the gradient at the cut, both SNRs);
+   - the Adaptive-R link ``CP_LINK`` (``adaptive:c3sl:R=16,min_R=2 >>
+     bwd:adaptive:c3sl:R=4,min_R=1``, both ``backend=pallas``) on the
+     VGG-16 step (B 64, Adam 1e-4), clamped to the batch: one train step
+     per (R_fwd, R_bwd) pair made by ``build_link_program_table`` (4 x 3 =
+     12, ``make`` counted), every pair once pinned, then 12 free steps fed
+     the cut SNR and the probe's gradient SNR (one host transfer a step),
+     then 8 steps with a 10% packet drop on both directions and erasure
+     recovery (masks from ``next_erasure``), plus one burst a direction
+     that drops a whole payload: the forward one is retransmitted, the
+     backward one (no resend allowed) raises ChannelErasure, at the steps
+     the schedule predicts and as often as a host replay.  Every step: a
+     finite loss, wire bytes equal to ``split_comm_bytes`` of the served
+     pair; over the phase: 3 bind and 3 unbind launches a step, all on the
+     FFT route, counted by (G, R) as the served pairs imply, ``make`` never
+     called again;
+   - the masked decode at an all-ones mask bitwise the decode, through the
+     kernels, at every bucket;
+   - Table 2 on the card at both paper cuts (B 64): ``bnpp:R=4`` against
+     ``c3sl:R=4,backend=pallas``, the codec's parameter bytes on the card
+     and its device time for encode + decode and their backward, beside
+     the analytic param_count and flops ratios; 3 ResNet-50 steps through
+     ``bnpp:R=4`` with finite losses and nonzero codec gradients.
+6. Times (CUDA events around runs of back-to-back calls, the median of at
    least 20 runs after warm-up).  Every kernel, plain version and library
    call is enqueued behind a sleep kernel, so its time is the device's
    alone (each kernel's host-inclusive time is kept beside it): bind and
@@ -126,7 +153,7 @@ FFT_EDGE_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
                    (1, 1, 32768)]
 # the direct kernels, called explicitly at the main-path shapes
 DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
-# phase 5: training, serving (decode, prefill chunk) and BENCH_roofline.json
+# phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
 # circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
 TIME_SHAPES = [(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
                (16, 4, 256), (16, 4, 1024)]
@@ -147,6 +174,27 @@ QUANT_REQUESTS, QUANT_NEW = 8, 16
 MAIN_PAGED = dict(B=8, ps=16, H=32, KV=32, hd=128, length=512)
 LOGIT_TOL = 1e-3            # teacher-forced kernel vs gather, of max|logit|
 SLEEP_CYCLES = 10_000_000   # about 5 ms: the host enqueues the timed calls
+
+# phase 5, the codec control plane: the Adaptive-R asymmetric link on the
+# VGG-16 step (B 64, D 2048).  Targets: the forward controller aims at a
+# cut SNR of -6 dB and the backward one at a gradient SNR of -5 dB (each
+# with the 1 dB deadband and an EMA of 0.5), between the levels the buckets
+# give at step 0 (cut: R 2, 4, 8, 16 at about -2, -5, -8, -19 dB;
+# gradient: R 1, 2, 4 at about -2, -4, -7 dB), so both walk their ladders.
+CP_LINK = ("adaptive:c3sl:R=16,min_R=2,target_snr=-6.0,ema=0.5,backend=pallas"
+           " >> bwd:adaptive:c3sl:R=4,min_R=1,target_snr=-5.0,ema=0.5,"
+           "backend=pallas")
+CP_FREE_STEPS = 12
+CP_FAULT_STEPS = 8
+CP_FAULT_RATES = {"drop": 0.1}
+# on top of the rate, one scheduled burst per direction drops the whole
+# first transmission of that step's payload; the forward channel may resend
+# once (so its burst is retransmitted), the backward one not at all (so its
+# burst exceeds the budget and raises ChannelErasure)
+CP_FAULT_BURSTS = {"fwd": 2, "bwd": 5}
+CP_FAULT_BUDGET = {"fwd": 1, "bwd": 0}
+CP_PARITY_PAIR = (4, 2)          # (R_fwd, R_bwd) of the step-0 parity
+CP_BNPP_STEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -258,7 +306,8 @@ def kernel_checks(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     errs = {"bind_superpose": {}, "unbind": {}, "bind_superpose_direct": {},
             "unbind_direct": {}}
-    cases = ([(s, circconv.route(s[-1]), "") for s in KERNEL_SHAPES + FFT_EDGE_SHAPES]
+    routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()))
+    cases = ([(s, circconv.route(s[-1]), "") for s in routed]
              + [(s, "direct", "_direct") for s in DIRECT_SHAPES])
     for (G, R, D), kernel_route, suffix in cases:
         K = hrr.generate_keys(gen, R, D, device=dev)
@@ -492,7 +541,8 @@ def make_setup(model: str, spec: str, dev, net=None):
     if net is None:
         net = init(torch.Generator().manual_seed(SEED), n_classes=cfg.n_classes,
                    device=dev)
-    codec = codecs.build(spec, D=cfg.D)
+    C, H, W = cfg.cut_shape
+    codec = codecs.build(spec, D=cfg.D, C=C, H=H, W=W)
     params = {"net": net, "codec": codec.init(device=dev)}
     loss = make_split_loss_fn(front, back, codec, F.cross_entropy)
     data = SyntheticImageDataset(n_classes=cfg.n_classes, seed=SEED)
@@ -522,8 +572,8 @@ def step0_parity(model: str, spec: str, dev) -> dict:
         net=params["net"])
     params_d["codec"] = params["codec"]
     batch = data.batch(cfg.batch_size, 0, device=dev)
-    lk, gk = split_value_and_grad(loss_k, params, batch)
-    ld, gd = split_value_and_grad(loss_d, params_d, batch)
+    lk, gk, _ = split_value_and_grad(loss_k, params, batch)
+    ld, gd, _ = split_value_and_grad(loss_d, params_d, batch)
     torch.cuda.synchronize()
     lk, ld = float(lk), float(ld)
     rel = abs(lk - ld) / abs(ld)
@@ -553,17 +603,18 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
     import torch
     from repro_torch.kernels import circconv
     from repro_torch.optim import adam
-    from repro_torch.transport.split import make_split_train_step
+    from repro_torch.transport.split import (make_split_train_step,
+                                             trainable_params)
     cfg, codec, params, loss, data = make_setup(model, spec, dev)
     opt = adam(cfg.lr)
-    opt_state = opt.init(params["net"])
+    opt_state = opt.init(trainable_params(loss, params))
     step = make_split_train_step(loss, opt)
     batches = [data.batch(cfg.batch_size, s, device=dev) for s in range(steps)]
     torch.cuda.synchronize()
     circconv.reset_launch_counts()
     losses = []
     for b in batches:
-        params, opt_state, l = step(params, opt_state, b)
+        params, opt_state, l, _ = step(params, opt_state, b)
         losses.append(l)
     torch.cuda.synchronize()
     counts = dict(circconv.LAUNCHES)
@@ -895,7 +946,416 @@ def serving_path(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the codec control plane
+# --------------------------------------------------------------------------
+
+def cp_link(spec: str, B: int):
+    from repro_torch import transport
+    return transport.build_link(spec, D=2048).with_max_R(B)
+
+
+def cp_payload_shapes(rf: int, rb: int, B: int) -> tuple:
+    """(G, R) of the forward payload and of the gradient payload of the
+    (R_fwd, R_bwd) program at batch B: the bwd codec regroups the gradient
+    payload's B/R_fwd rows."""
+    return (B // rf, rf), (B // rf // rb, rb)
+
+
+def cp_kernel_shapes() -> list:
+    """(G, R, D) of every bind/unbind that CP_LINK's (R_fwd, R_bwd)
+    programs launch at the paper's batch, at both paper cuts' D (phase 2
+    checks each against the plain versions)."""
+    from repro_torch.configs.paper import VGG16_CIFAR10 as cfg
+    link = cp_link(CP_LINK, cfg.batch_size)
+    return sorted({(G, R, D) for D in (2048, 4096)
+                   for rf in link.fwd.codec.ladder for rb in link.bwd.codec.ladder
+                   for G, R in cp_payload_shapes(rf, rb, cfg.batch_size)})
+
+
+def cp_step_table(link, link_params, loss_fn, opt, made: list):
+    """One train step per (R_fwd, R_bwd) pair, through
+    ``build_link_program_table``; ``made`` counts the calls of ``make``."""
+    from repro_torch.models import convnets
+    from repro_torch.transport import (build_link_program_table,
+                                       make_split_loss_fn,
+                                       make_split_train_step)
+
+    def make(static, static_params):
+        made.append(static.spec())
+        loss = make_split_loss_fn(convnets.vgg16_front, convnets.vgg16_back,
+                                  static, loss_fn, with_metrics=True)
+        step = make_split_train_step(loss, opt)
+
+        def run(net, opt_state, batch, erasure=None):
+            p, opt_state, l, m = step({"net": net, "codec": static_params},
+                                      opt_state, batch, bwd_probe=True,
+                                      erasure=erasure)
+            return p["net"], opt_state, l, m
+        return {"static": static, "run": run}
+    return build_link_program_table(link, link_params, make)
+
+
+def cp_parity(dev) -> dict:
+    """Step 0 of one asymmetric pair through the kernels against the same
+    step through ``backend=fft`` on the card (same weights, keys and
+    batch): loss rtol 1e-4, every gradient leaf and the gradient at the cut
+    within 1e-3 of its max (phase 3's step-0 tolerances), the two SNRs
+    within 1e-3 dB."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.paper import VGG16_CIFAR10 as cfg
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.models import convnets
+    from repro_torch.transport import (build_link, make_split_loss_fn,
+                                       split_value_and_grad)
+    rf, rb = CP_PARITY_PAIR
+    net = convnets.init_vgg16(torch.Generator().manual_seed(SEED),
+                              n_classes=cfg.n_classes, device=dev)
+    batch = SyntheticImageDataset(n_classes=cfg.n_classes, seed=SEED).batch(
+        cfg.batch_size, 0, device=dev)
+    res = {}
+    for backend in ("pallas", "fft"):
+        link = build_link(f"c3sl:R={rf},backend={backend} >> "
+                          f"bwd:c3sl:R={rb},backend={backend}", D=cfg.D)
+        cut = []
+
+        def front(p, x):
+            z = convnets.vgg16_front(p, x)
+            z.register_hook(cut.append)
+            return z
+        loss = make_split_loss_fn(front, convnets.vgg16_back, link,
+                                  F.cross_entropy, with_metrics=True)
+        params = {"net": net, "codec": link.init(
+            torch.Generator().manual_seed(SEED), device=dev)}
+        res[backend] = (*split_value_and_grad(loss, params, batch,
+                                              bwd_probe=True), cut[0])
+    torch.cuda.synchronize()
+    (lk, gk, mk, ck), (lf, gf, mf, cf) = res["pallas"], res["fft"]
+    out = {"pair": [rf, rb], "loss_kernel": float(lk), "loss_fft": float(lf),
+           "loss_rel_err": abs(float(lk) - float(lf)) / abs(float(lf)),
+           "grad_leaf_rel_err": leaf_rel_err(gk, gf),
+           "cut_grad_rel_err": float((ck - cf).abs().max() / cf.abs().max()),
+           "cut_snr": [float(mk["cut_snr"]), float(mf["cut_snr"])],
+           "bwd_snr": [float(mk["bwd_snr"]), float(mf["bwd_snr"])]}
+    check(out["loss_rel_err"] <= 1e-4, f"control plane step-0 loss {out}")
+    check(out["grad_leaf_rel_err"] <= 1e-3 and out["cut_grad_rel_err"] <= 1e-3,
+          f"control plane step-0 grads {out}")
+    check(abs(out["cut_snr"][0] - out["cut_snr"][1]) <= 1e-3
+          and abs(out["bwd_snr"][0] - out["bwd_snr"][1]) <= 1e-3,
+          f"control plane step-0 SNRs {out}")
+    return out
+
+
+def cp_launch_shapes(served: dict, B: int) -> dict:
+    """Launches by (G, R) that the served (R_fwd, R_bwd) pairs imply, for
+    bind and for unbind alike: per step, each at the forward payload twice
+    (encode and decode, and each one's backward) and at the gradient
+    payload once."""
+    from collections import Counter
+    shapes = Counter()
+    for (rf, rb), n in served.items():
+        fwd, grad = cp_payload_shapes(rf, rb, B)
+        shapes[fwd] += 2 * n
+        shapes[grad] += n
+    return {f"{g}x{r}": n for (g, r), n in sorted(shapes.items())}
+
+
+def cp_counted_shapes() -> dict:
+    """The launches counted by (G, R, D) since the last reset, by kernel:
+    {name: {"GxR" or "GxRxD": count}} (D only where it is not 2048)."""
+    from repro_torch.kernels import circconv
+    out = {name: {} for name in circconv.LAUNCHES}
+    for (name, G, R, D), n in sorted(circconv.SHAPE_LAUNCHES.items()):
+        out[name][f"{G}x{R}" + ("" if D == 2048 else f"x{D}")] = n
+    return out
+
+
+def control_plane(dev) -> dict:
+    """Phase 5 (a) and (b): the Adaptive-R asymmetric link ``CP_LINK`` on
+    the VGG-16 train step (B 64, Adam 1e-4), clamped to the batch.  Every
+    (R_fwd, R_bwd) pair runs one step pinned, then the controllers run
+    free, fed the cut SNR and the probe's gradient SNR (read with the loss
+    in one transfer a step, the only sync); then the same link under a
+    ``drop`` FaultPlan with erasure recovery on both directions.  Launch
+    counts are reset just before the steps and read just after."""
+    import torch
+    import torch.nn.functional as F
+    from collections import Counter
+    from repro_torch import faults
+    from repro_torch.configs.paper import VGG16_CIFAR10 as cfg
+    from repro_torch.data.pipeline import SyntheticImageDataset
+    from repro_torch.kernels import circconv
+    from repro_torch.models import convnets
+    from repro_torch.optim import adam
+    from repro_torch.transport import link_program_key, split_comm_bytes
+
+    B = cfg.batch_size
+    link = cp_link(CP_LINK, B)
+    made = []
+    opt = adam(cfg.lr)
+    link_params = link.init(torch.Generator().manual_seed(SEED), device=dev)
+    table = cp_step_table(link, link_params, F.cross_entropy, opt, made)
+    n_pairs = len(link.fwd.codec.ladder) * len(link.bwd.codec.ladder)
+    check(len(made) == len(table) == n_pairs == 12,
+          f"control plane: make ran {len(made)} times for {len(table)} entries")
+    net = convnets.init_vgg16(torch.Generator().manual_seed(SEED),
+                              n_classes=cfg.n_classes, device=dev)
+    opt_state = opt.init({"net": net})
+    data = SyntheticImageDataset(n_classes=cfg.n_classes, seed=SEED)
+    n_steps = n_pairs + CP_FREE_STEPS + CP_FAULT_STEPS
+    batches = [data.batch(B, s, device=dev) for s in range(n_steps)]
+    served, steps, wire_checked = Counter(), [], 0
+    torch.cuda.synchronize()
+    circconv.reset_launch_counts()
+
+    def one(batch, erasure=None, phase="free"):
+        nonlocal net, opt_state, wire_checked
+        key = link_program_key(link)
+        entry = table[key]
+        net, opt_state, loss, m = entry["run"](net, opt_state, batch, erasure)
+        # the one host transfer of the step
+        l, cut, bwd = torch.stack([loss, m["cut_snr"], m["bwd_snr"]]).tolist()
+        wire = link.wire_bytes_fwd(B) + link.wire_bytes_bwd(B)
+        check(wire == split_comm_bytes(entry["static"], B),
+              f"control plane wire bytes {wire} for {key}")
+        wire_checked += 1
+        served[key] += 1
+        steps.append({"phase": phase, "R": list(key), "loss": l,
+                      "cut_snr": cut, "bwd_snr": bwd, "wire_bytes": wire})
+        check(math.isfinite(l), f"control plane {phase} step loss {l} at {key}")
+        return cut, bwd
+
+    it = iter(batches)
+    for rf, rb in table:                             # (a) every pair, pinned
+        link.fwd.codec.pin(rf)
+        link.bwd.codec.pin(rb)
+        check(link_program_key(link) == (rf, rb), "pin")
+        one(next(it), phase="pinned")
+    for ctl in (link.fwd.codec, link.bwd.codec):     # back to the start
+        ctl.pin(ctl.min_R).unpin()
+    observed = []
+    for _ in range(CP_FREE_STEPS):                   # (a) free
+        observed.append(one(next(it)))
+        link.observe(*observed[-1])
+
+    # (b) faults: both directions drop packets, the decode renormalises
+    plan = faults.FaultPlan(seed=SEED, rates=CP_FAULT_RATES, schedule={
+        d: {s: faults.FaultEvent("drop", 1.0)} for d, s in CP_FAULT_BURSTS.items()})
+
+    def install(lnk):
+        for ch in (lnk.fwd, lnk.bwd):
+            ch.install_faults(plan, faults.RecoveryPolicy(
+                mode="erasure", retry_budget=CP_FAULT_BUDGET[ch.direction]))
+    install(link)
+    erased_at, retransmitted_at, erased_packets = [], [], 0
+    for s in range(CP_FAULT_STEPS):
+        batch = next(it)
+        try:
+            masks, info = link.next_erasure(B)
+        except faults.ChannelErasure:
+            erased_at.append(s)
+            observed.append(None)
+            continue
+        if any(i["attempts"] > 1 for i in info.values() if i):
+            retransmitted_at.append(s)
+        erased_packets += sum(i["erased_packets"] for i in info.values() if i)
+        erasure = {k: torch.from_numpy(v).to(dev) for k, v in masks.items()}
+        observed.append(one(batch, erasure, phase="faults"))
+        link.observe(*observed[-1])
+    torch.cuda.synchronize()
+    counts = dict(circconv.LAUNCHES)
+    routes = route_counts()
+    by_shape = cp_counted_shapes()
+    check(len(made) == 12, f"control plane: make ran again ({len(made)})")
+
+    # the host's replay of the plan: a fresh link fed the same observations
+    replay = cp_link(CP_LINK, B)
+    for obs in observed[:CP_FREE_STEPS]:
+        replay.observe(*obs)
+    install(replay)
+    replayed = 0
+    for obs in observed[CP_FREE_STEPS:]:
+        try:
+            replay.next_erasure(B)
+        except faults.ChannelErasure:
+            replayed += 1
+            continue
+        if obs is not None:
+            replay.observe(*obs)
+    check(len(erased_at) == replayed,
+          f"ChannelErasure {erased_at} on the card vs {replayed} replayed")
+    # what the schedule alone predicts: a burst loses every packet of its
+    # first transmission, more than erasure recovery accepts; a direction
+    # with no resend left raises at its burst, one with a resend retransmits
+    # (the 10% rate alone stays under the accepted half)
+    want_erased = sorted(s for d, s in CP_FAULT_BURSTS.items()
+                         if CP_FAULT_BUDGET[d] == 0)
+    want_resent = sorted(s for d, s in CP_FAULT_BURSTS.items()
+                         if CP_FAULT_BUDGET[d] > 0)
+    check(erased_at == want_erased and want_erased,
+          f"ChannelErasure at fault steps {erased_at}, predicted {want_erased}")
+    check(set(want_resent) <= set(retransmitted_at) and want_resent,
+          f"retransmitted at fault steps {retransmitted_at}, predicted "
+          f"at least {want_resent}")
+    executed = sum(served.values())
+    check_fft_route(routes, 3 * executed, "control plane")
+    check(set(served) == set(table), f"pairs served {sorted(served)}")
+    implied = cp_launch_shapes(served, B)
+    check(all(by_shape[name] == implied for name in by_shape),
+          f"control plane launches by shape {by_shape}, implied {implied}")
+    return {"link": link.spec(), "pairs": [list(k) for k in table],
+            "make_calls": len(made), "steps": steps, "executed": executed,
+            "served": {f"{rf},{rb}": n for (rf, rb), n in sorted(served.items())},
+            "wire_checked": wire_checked, "launches": counts,
+            "route_launches": routes,
+            "launches_by_shape": by_shape,
+            "faults": {"rates": CP_FAULT_RATES, "bursts": CP_FAULT_BURSTS,
+                       "retry_budget": CP_FAULT_BUDGET,
+                       "erased_at": erased_at, "replayed_erasures": replayed,
+                       "retransmitted_at": retransmitted_at,
+                       "erased_packets": erased_packets}}
+
+
+def cp_masked_decode_bitwise(dev) -> dict:
+    """(b) The masked decode through the kernels at an all-ones mask is
+    bitwise the decode, at every forward bucket and every backward one."""
+    import torch
+    from repro_torch import codecs
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for R, rows in ((2, 64), (4, 64), (8, 64), (16, 64), (1, 4), (2, 4), (4, 4)):
+        c = codecs.build(f"c3sl:R={R},D=2048,backend=pallas")
+        p = c.init(device=dev)
+        payload = c.encode(p, torch.randn((rows, 2048), generator=gen).to(dev))
+        a = c.decode(p, payload)
+        b = c.decode_masked(p, payload, torch.ones_like(payload))
+        out[f"R{R}/rows{rows}"] = bool(torch.equal(a, b))
+    check(all(out.values()), f"masked decode at all ones not bitwise: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_defaults():
+    """PyTorch's own cuDNN settings (TF32 convolutions, nondeterministic
+    algorithms allowed) instead of the comparison settings of this run."""
+    import torch
+    b = torch.backends.cudnn
+    saved = (b.allow_tf32, b.deterministic)
+    b.allow_tf32, b.deterministic = True, False
+    try:
+        yield
+    finally:
+        b.allow_tf32, b.deterministic = saved
+
+
+def device_top(fn, n=6) -> list:
+    """``torch.profiler``'s self device time of ``fn``'s kernels, by name
+    (the largest ``n``), ms a call over 10 calls; [] where the profiler
+    sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    return [{"name": k[:80], "ms": t, "calls": c}
+            for k, t, c in device_rows(prof, 10)[:n]]
+
+
+def device_rows(prof, n_calls: int) -> list:
+    """(kernel name, self device ms a call, launches a call) of a
+    ``torch.profiler`` run over ``n_calls`` calls, largest first: device-side
+    events only (an op's own event repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3 / n_calls, e.count // n_calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def cp_table2(dev) -> dict:
+    """(c) Table 2 on the card at both paper cuts, B 64: BottleNet++
+    against C3-SL (the kernels), R 4 each.  The codec's parameter bytes
+    resident on the card, and its device time per train step (encode +
+    decode forward, and their backward: the input's gradient, and the
+    params' for BottleNet++) in this run's comparison settings (float32,
+    deterministic cuDNN) and in PyTorch's defaults (TF32 convolutions),
+    beside the analytic param_count / flops ratios; and where
+    BottleNet++'s device time goes."""
+    import torch
+    from repro_torch import codecs
+    from repro_torch.configs.paper import RESNET50_CIFAR100, VGG16_CIFAR10
+    from repro_torch.interop import tree_leaves
+    out = {}
+    for cfg in (VGG16_CIFAR10, RESNET50_CIFAR100):
+        C, H, W = cfg.cut_shape
+        B = cfg.batch_size
+        row = {}
+        for name, spec in (("bnpp", "bnpp:R=4"),
+                           ("c3sl", "c3sl:R=4,backend=pallas")):
+            c = codecs.build(spec, D=cfg.D, C=C, H=H, W=W)
+            p = c.init(torch.Generator().manual_seed(SEED), device=dev)
+            shape = (B, C, H, W) if c.feature_layout == "nchw" else (B, cfg.D)
+            gen = torch.Generator().manual_seed(SEED + 4)
+            Z = torch.randn(shape, generator=gen).to(dev).requires_grad_()
+            G = torch.randn(shape, generator=gen).to(dev)
+            trains = [t.requires_grad_() for t in tree_leaves(p)
+                      if getattr(c, "trainable", False)]
+
+            def fwd_bwd(c=c, p=p, Z=Z, G=G, trains=trains):
+                zhat = c.decode(p, c.encode(p, Z))
+                return torch.autograd.grad(zhat, [Z, *trains], G)
+            row[name] = {
+                "spec": c.spec(),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(p)),
+                "param_count": c.param_count(), "flops": c.flops(B),
+                "ms": cuda_ms(fwd_bwd)}
+            with cudnn_defaults():
+                row[name]["ms_tf32"] = cuda_ms(fwd_bwd)
+            row[name]["top"] = device_top(fwd_bwd)
+        b, h = row["bnpp"], row["c3sl"]
+        row["ratios"] = {
+            "param_bytes": b["param_bytes"] / h["param_bytes"],
+            "param_count": b["param_count"] / h["param_count"],
+            "ms": b["ms"] / h["ms"], "ms_tf32": b["ms_tf32"] / h["ms_tf32"],
+            "flops": b["flops"] / h["flops"]}
+        out[cfg.name] = row
+    return out
+
+
+def cp_bnpp_resnet(dev) -> dict:
+    """(c) BottleNet++ trains: ResNet-50/CIFAR-100 through ``bnpp:R=4`` for
+    CP_BNPP_STEPS steps (finite losses), and the codec's gradients at step
+    0 are nonzero on every weight and BatchNorm leaf (the conv biases in
+    front of a BatchNorm have an exact gradient of 0)."""
+    import torch
+    from repro_torch.optim import adam
+    from repro_torch.transport import (make_split_train_step,
+                                       split_value_and_grad, trainable_params)
+    cfg, codec, params, loss, data = make_setup("resnet50", "bnpp:R=4", dev)
+    batches = [data.batch(cfg.batch_size, s, device=dev)
+               for s in range(CP_BNPP_STEPS)]
+    _, g0, _ = split_value_and_grad(loss, params, batches[0])
+    gmax = {k: float(v.abs().max()) for k, v in g0["codec"].items()}
+    check(all(v > 0 for k, v in gmax.items() if k not in ("b_enc", "b_dec")),
+          f"bnpp codec grads {gmax}")
+    opt = adam(cfg.lr)
+    state = opt.init(trainable_params(loss, params))
+    step = make_split_train_step(loss, opt)
+    losses = []
+    for b in batches:
+        params, state, l, _ = step(params, state, b)
+        losses.append(l)
+    losses = torch.stack(losses).tolist()
+    check(all(map(math.isfinite, losses)), f"resnet50 bnpp losses {losses}")
+    return {"spec": codec.spec(), "losses": losses, "codec_grad_max": gmax}
+
+
+# --------------------------------------------------------------------------
+# phase 6: times
 # --------------------------------------------------------------------------
 
 def kernel_times(dev, G, R, D) -> dict:
@@ -952,7 +1412,7 @@ def kernel_times(dev, G, R, D) -> dict:
     return out
 
 
-# phase 5's paged shapes: the serving run's decode read (8 slots, positions
+# phase 6's paged shapes: the serving run's decode read (8 slots, positions
 # spread over 128-160) and one live slot with the whole cache admitted
 PAGED_TIME_POS = {"serving": np.linspace(128, 160, 8).round().astype(np.int32),
                   "one_slot": np.array([511], np.int32)}
@@ -1046,16 +1506,17 @@ def paged_times(dev, sets=4) -> dict:
 def vgg_stepper(spec: str, dev):
     """A closure that runs one VGG-16 train step (B=64, R=4) in place."""
     from repro_torch.optim import adam
-    from repro_torch.transport.split import make_split_train_step
+    from repro_torch.transport.split import (make_split_train_step,
+                                             trainable_params)
 
     cfg, codec, params, loss, data = make_setup("vgg16", spec, dev)
     opt = adam(cfg.lr)
-    state = {"p": params, "o": opt.init(params["net"])}
+    state = {"p": params, "o": opt.init(trainable_params(loss, params))}
     step = make_split_train_step(loss, opt)
     batch = data.batch(cfg.batch_size, 0, device=dev)
 
     def one():
-        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+        state["p"], state["o"], _, _ = step(state["p"], state["o"], batch)
     return one
 
 
@@ -1081,7 +1542,6 @@ def step_profile(dev, steps=5) -> dict:
     share is a lower bound).  Device times come back None where the
     profiler sees none."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     one = vgg_stepper("c3sl:R=4,backend=pallas", dev)
@@ -1094,13 +1554,7 @@ def step_profile(dev, steps=5) -> dict:
             one()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: an op's own event repeats its kernels' time
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
-            rows.append((e.key, e.self_device_time_total / 1e3 / steps,
-                         e.count // steps))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, steps)
     busy = sum(r[1] for r in rows)
     if not busy:
         return {"device_ms_per_step": None, "wall_ms_per_step": wall_ms / steps}
@@ -1213,6 +1667,54 @@ def main() -> int:
           flush=True)
     lap("serving_path")
 
+    cp_par = cp_parity(dev)
+    cp = control_plane(dev)
+    cp_bits = cp_masked_decode_bitwise(dev)
+    cp_t2 = cp_table2(dev)
+    cp_bn = cp_bnpp_resnet(dev)
+    free_cuda()
+    lap("control_plane")
+    print(f"control plane step-0 parity (R_fwd, R_bwd) = {cp_par['pair']}, "
+          f"kernels vs backend=fft: loss rel err {cp_par['loss_rel_err']:.3g}, "
+          f"grad leaf rel err {cp_par['grad_leaf_rel_err']:.3g}, cut grad rel "
+          f"err {cp_par['cut_grad_rel_err']:.3g}, cut SNR {cp_par['cut_snr']}, "
+          f"grad SNR {cp_par['bwd_snr']}", flush=True)
+    print(f"control plane {cp['link']}: make ran {cp['make_calls']} times for "
+          f"{len(cp['pairs'])} (R_fwd, R_bwd) pairs; {cp['executed']} VGG-16 "
+          f"steps (B 64), served {cp['served']}, wire bytes checked on "
+          f"{cp['wire_checked']} steps; launches {cp['launches']}, routes "
+          f"{cp['route_launches']}; by (G, R) {cp['launches_by_shape']}",
+          flush=True)
+    for i, st in enumerate(cp["steps"]):
+        print(f"  cp step {i:2d} {st['phase']:6s} R_fwd {st['R'][0]:2d} R_bwd "
+              f"{st['R'][1]} cut SNR {st['cut_snr']:7.3f} dB grad SNR "
+              f"{st['bwd_snr']:7.3f} dB loss {st['loss']:.4f} wire "
+              f"{st['wire_bytes']} B")
+    fl = cp["faults"]
+    print(f"control plane faults {fl['rates']} + bursts at {fl['bursts']}, "
+          f"retry budget {fl['retry_budget']} (erasure recovery): "
+          f"ChannelErasure at fault steps {fl['erased_at']} (host replay "
+          f"{fl['replayed_erasures']}), retransmitted at {fl['retransmitted_at']}, "
+          f"{fl['erased_packets']} packets erased and renormalised; masked "
+          f"decode at all ones bitwise the decode: {cp_bits}", flush=True)
+    for name, row in cp_t2.items():
+        b, h, r = row["bnpp"], row["c3sl"], row["ratios"]
+        print(f"time [{card}] table2 {name} B=64 {b['spec']} vs {h['spec']}: "
+              f"codec params on the card {b['param_bytes']} vs "
+              f"{h['param_bytes']} B ({r['param_bytes']:.2f}x; param_count "
+              f"{r['param_count']:.2f}x), codec fwd+bwd device time "
+              f"{b['ms']:.4f} vs {h['ms']:.4f} ms ({r['ms']:.2f}x; flops "
+              f"{r['flops']:.3f}x); with TF32 convolutions {b['ms_tf32']:.4f} "
+              f"vs {h['ms_tf32']:.4f} ms ({r['ms_tf32']:.2f}x)", flush=True)
+        for k in (b, h):
+            for t in k["top"]:
+                print(f"  {k['spec'].split(':')[0]} {t['ms']:.4f} ms x{t['calls']}"
+                      f"  {t['name']}")
+    print(f"resnet50 {cp_bn['spec']}: {CP_BNPP_STEPS} steps, losses "
+          f"{[round(v, 4) for v in cp_bn['losses']]}, codec grad max "
+          f"{ {k: f'{v:.3g}' for k, v in cp_bn['codec_grad_max'].items()} }",
+          flush=True)
+
     times = {f"{G}x{R}x{D}": kernel_times(dev, G, R, D) for G, R, D in TIME_SHAPES}
     free_cuda()
     ptimes = paged_times(dev)
@@ -1297,13 +1799,16 @@ def main() -> int:
                ("paged_attention", "paged_attention", None, "paged_attention.cu"),
                ("paged_attention_quant", "paged_attention_quant", None,
                 "paged_attention.cu")]
-    # at the VGG-16 train step's shape; the direct kernels' errors from
-    # their explicit calls there, the FFT kernels' from the routed calls
-    # and the gradients
-    main_errs = {"bind_superpose": max(errs["bind_superpose"]["16x4x2048/float32"],
-                                       errs["bind_superpose"]["grad 16x4x2048"]),
-                 "unbind": max(errs["unbind"]["16x4x2048/float32"],
-                               errs["unbind"]["grad 16x4x2048"]),
+    # at the shapes the record's launches ran: the FFT kernels' from the
+    # routed float32 calls at the VGG-16 train step's shape and every
+    # control-plane shape, and from the gradients; the direct kernels' from
+    # their explicit calls at the train step's shape
+    cp_keys = ["16x4x2048/float32"] + [f"{G}x{R}x{D}/float32"
+                                       for G, R, D in cp_kernel_shapes() if D == 2048]
+    main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
+                                       + [errs["bind_superpose"]["grad 16x4x2048"]]),
+                 "unbind": max([errs["unbind"][k] for k in cp_keys]
+                               + [errs["unbind"]["grad 16x4x2048"]]),
                  "bind_superpose_direct":
                      errs["bind_superpose_direct"]["16x4x2048/float32"],
                  "unbind_direct": errs["unbind_direct"]["16x4x2048/float32"],
@@ -1311,8 +1816,11 @@ def main() -> int:
                  "paged_attention": errs["paged_attention"]["main/float32"],
                  "paged_attention_quant":
                      errs["paged_attention_quant"]["main/bfloat16"]}
-    launches = {"bind_superpose": main_run["route_launches"]["bind_superpose/fft"],
-                "unbind": main_run["route_launches"]["unbind/fft"],
+    # the main path's run and the control plane's
+    launches = {"bind_superpose": main_run["route_launches"]["bind_superpose/fft"]
+                + cp["route_launches"]["bind_superpose/fft"],
+                "unbind": main_run["route_launches"]["unbind/fft"]
+                + cp["route_launches"]["unbind/fft"],
                 "bind_superpose_direct":
                     main_run["route_launches"]["bind_superpose/direct"],
                 "unbind_direct": main_run["route_launches"]["unbind/direct"],
@@ -1354,7 +1862,11 @@ def main() -> int:
         "build_s": build_s, "elapsed_s": elapsed, "kernel_errors": errs,
         "max_errors": summary, "bf16_readings": BF16_READINGS,
         "step0_parity": parity, "main_run": main_run,
-        "other_runs": other_runs, "serving": serve, "kernel_times": times,
+        "other_runs": other_runs, "serving": serve,
+        "control_plane": {"parity": cp_par, "run": cp,
+                          "masked_decode_bitwise": cp_bits, "table2": cp_t2,
+                          "bnpp_resnet50": cp_bn},
+        "kernel_times": times,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},
         indent=1))

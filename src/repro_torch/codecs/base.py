@@ -31,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Protocol, runtime_checkable
 
+import torch
+
 
 @runtime_checkable
 class Codec(Protocol):
@@ -195,9 +197,16 @@ def build(spec: str, /, **defaults):
 
     ``defaults`` fill spec-omitted dataclass fields (runtime dims like ``D``);
     explicit spec args win, and defaults unknown to a stage are ignored.
-    (The reference's ``adaptive:`` prefix is not ported yet: it fails here
-    as an unknown transform.)
+
+    An ``adaptive:`` prefix wraps the rest of the spec in the Adaptive-R
+    scheduler (see ``repro_torch.codecs.adaptive``): the inner codec's spec
+    grammar is unchanged, and adaptive args (``min_R``/``target_snr``/...)
+    ride in the first stage's arg list.
     """
+    stripped = spec.strip()
+    if stripped == "adaptive" or stripped.startswith("adaptive:"):
+        from repro_torch.codecs.adaptive import build_adaptive
+        return build_adaptive(stripped, **defaults)
     head, *rest = parse_spec(spec)
     codec = _construct(_TRANSFORMS, head, defaults, "transform codec")
     if rest:
@@ -239,6 +248,18 @@ def apply_quant_bits(spec: str, quant_bits) -> str:
     if any(s.name == "int8" for s in parse_spec(spec)):
         return spec
     return spec + "|int8"
+
+
+def fork_rng(rng: torch.Generator | None) -> torch.Generator | None:
+    """A copy of ``rng`` at its current state (None stays None).  A jax key
+    is a value, so the reference feeds one key to several inits and each
+    draws the same numbers; a ``torch.Generator`` is stateful, so each of
+    those inits takes its own copy instead."""
+    if rng is None:
+        return None
+    out = torch.Generator(device=rng.device)
+    out.set_state(rng.get_state())
+    return out
 
 
 class SpecMixin:

@@ -58,6 +58,42 @@ def generate_keys(rng: torch.Generator, R: int, D: int, dtype=torch.float32,
 
 
 # --------------------------------------------------------------------------
+# Pairwise circular convolution / correlation along the last axis (leading
+# dims broadcast).  The fft forms transform in float32 and return the
+# operands' promoted dtype, as the reference's do; the direct forms are the
+# exact O(D^2) contraction of ``kernels.ref``.
+# --------------------------------------------------------------------------
+
+def _fft_pair(a: torch.Tensor, b: torch.Tensor, conj: bool) -> torch.Tensor:
+    D = b.shape[-1]
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    fa = torch.fft.rfft(a.float(), dim=-1)
+    fb = torch.fft.rfft(b.float(), dim=-1)
+    prod = (fa.conj() if conj else fa) * fb
+    return torch.fft.irfft(prod, n=D, dim=-1).to(out_dtype)
+
+
+def circ_conv_fft(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular convolution along the last axis (leading dims broadcast)."""
+    return _fft_pair(a, b, conj=False)
+
+
+def circ_corr_fft(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular correlation along the last axis (leading dims broadcast)."""
+    return _fft_pair(a, b, conj=True)
+
+
+def circ_conv_direct(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular convolution by the O(D^2) gather contraction."""
+    return kref.circ_conv_ref(a, b)
+
+
+def circ_corr_direct(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular correlation by the O(D^2) gather contraction."""
+    return kref.circ_corr_ref(a, b)
+
+
+# --------------------------------------------------------------------------
 # Grouped encode / decode (the paper's Algorithm 1 inner loop, vectorized)
 # --------------------------------------------------------------------------
 

@@ -21,10 +21,12 @@ failure of the chosen kernel raises, and nothing retries on the other.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the kernel's plain version beside it (``*_plain``, the direct O(D^2)
-form), and only there.  Every launch adds one to ``LAUNCHES[name]`` and to
-``ROUTE_LAUNCHES[(name, route)]``.
+form), and only there.  Every launch adds one to ``LAUNCHES[name]``, to
+``ROUTE_LAUNCHES[(name, route)]`` and to ``SHAPE_LAUNCHES[(name, G, R, D)]``.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -33,10 +35,11 @@ from repro_torch.kernels import build, ref
 ROUTES = ("fft", "direct")
 FFT_MIN_D, FFT_MAX_D = 4, 16384   # 16384: 224 KB of the 227 KB of shared memory
 
-# kernel launches since the last reset_launch_counts(), by wrapper name and
-# by (wrapper name, route)
+# kernel launches since the last reset_launch_counts(), by wrapper name, by
+# (wrapper name, route) and by (wrapper name, G, R, D)
 LAUNCHES = {"bind_superpose": 0, "unbind": 0}
 ROUTE_LAUNCHES = {(name, r): 0 for name in LAUNCHES for r in ROUTES}
+SHAPE_LAUNCHES: Counter = Counter()
 
 # (wrapper name, route) -> C entry point; route -> source in csrc/
 _FN = {("bind_superpose", "direct"): "circconv_bind_superpose",
@@ -53,6 +56,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     for k in ROUTE_LAUNCHES:
         ROUTE_LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def route(D: int) -> str:
@@ -131,6 +135,7 @@ def _launch(count_name: str, kernel_route: str, x, Kext, out, G, R, D):
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     LAUNCHES[count_name] += 1
     ROUTE_LAUNCHES[(count_name, kernel_route)] += 1
+    SHAPE_LAUNCHES[(count_name, G, R, D)] += 1
     return out
 
 

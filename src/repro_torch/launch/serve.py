@@ -13,8 +13,13 @@ unless ``--device cpu`` is given; weights are random, drawn from
         --cache-len 512 --requests 16 --prompt-len 128 --max-new 32 \\
         --chunk-size 64 --greedy --codec "c3sl:R=4,backend=pallas"
 
-Not ported yet: the front door, the speculative-decoding flags,
-``--pin-R`` and ``--sanitize`` (ROADMAP.md slices 3, 5 and 7).
+    # an adaptive codec pinned to one bucket, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+        --reduced --engine --device cpu --codec "adaptive:c3sl:R=4,min_R=1" \
+        --pin-R 2
+
+Not ported yet: the front door, the speculative-decoding flags and
+``--sanitize`` (ROADMAP.md slices 5, 6 and 7).
 """
 from __future__ import annotations
 
@@ -25,17 +30,31 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import codecs
+from repro_torch import codecs, transport
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.models import lm as lm_lib
 
 
 def _serving_codec(spec: str, D: int, R: int, batch: int):
-    if ">>" in spec:
-        raise NotImplementedError("per-direction link specs are not ported "
-                                  "yet: they come with ROADMAP.md slice 3 "
-                                  "(the codec control plane)")
+    """Build the serving-side codec from a spec.  A per-direction link spec
+    (``... >> bwd:...``) keeps the LINK: the engine serves the forward
+    channel (no gradient crosses the cut at inference, so the backward
+    direction is accounted as 0)."""
+    if transport.is_link_spec(spec):
+        link = transport.build_link(spec, D=D, R=R).with_max_R(batch)
+        print(f"[serve] link spec {link.spec()!r}: forward channel serves "
+              f"(no gradient crosses the cut at inference)", flush=True)
+        return link
     return codecs.clamp_R(codecs.build(spec, D=D, R=R), batch)
+
+
+def _pin(codec, pin_R):
+    """``--pin-R``: fix an adaptive codec's schedule to one bucket."""
+    if pin_R is None:
+        return
+    if not isinstance(codec, codecs.AdaptiveC3SL):
+        raise SystemExit("--pin-R needs an 'adaptive:...' --codec spec")
+    codec.pin(pin_R)
 
 
 def _sync(device):
@@ -60,6 +79,7 @@ def _run_engine(cfg, params, args):
                         kv_layout=args.kv_layout, page_size=args.page_size,
                         num_pages=args.num_pages, interleave=args.interleave,
                         kv_read=args.kv_read)
+    _pin(eng.codec, args.pin_R)
     rng = np.random.RandomState(args.seed + 1)
     prompts = rng.randint(0, cfg.vocab_size, (args.requests, args.prompt_len))
     for u, p in enumerate(prompts.tolist()):
@@ -77,10 +97,14 @@ def _run_engine(cfg, params, args):
           f"codec={eng.codec.spec() if eng.codec is not None else 'none'} "
           f"device={args.device}")
     if eng.codec is not None:
-        print(f"cut-layer wire: fwd {eng.stats['wire_bytes_fwd']:,d} B + "
-              f"bwd {eng.stats['wire_bytes_bwd']:,d} B "
-              f"over {eng.stats['decode_steps']} decode steps + "
-              f"{eng.stats['prefill_chunks']} prefill chunks")
+        line = (f"cut-layer wire: fwd {eng.stats['wire_bytes_fwd']:,d} B + "
+                f"bwd {eng.stats['wire_bytes_bwd']:,d} B "
+                f"over {eng.stats['decode_steps']} decode steps + "
+                f"{eng.stats['prefill_chunks']} prefill chunks")
+        if eng.r_served:
+            hist = dict(sorted(eng.r_served.items()))
+            line += f"; served R schedule {hist} (decode steps + chunks)"
+        print(line)
     if eng.paged is not None:
         print(f"paged pool: {eng.paged.num_pages} pages x "
               f"{eng.paged.page_size} positions "
@@ -102,8 +126,28 @@ def _run_lockstep(cfg, params, args):
         codec = _serving_codec(args.codec, cfg.d_model, args.R, args.batch)
         codec_params = codec.init(torch.Generator().manual_seed(7),
                                   device=args.device)
+        if isinstance(codec, transport.SplitLink):
+            codec, codec_params = codec.serving_codec(codec_params)
+    _pin(codec, args.pin_R)
     cache = lm_lib.init_decode_cache(params, cfg, args.batch, args.cache_len)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
+
+    def make_step(step_codec, step_codec_params):
+        # one step per (bucket) codec; the adaptive wrapper itself never
+        # goes into a step: the bucket is picked on the host
+        def step(cache, tokens, t):
+            logits, cache = lm_lib.decode_step(
+                params, cache, tokens, t, cfg, codec=step_codec,
+                codec_params=step_codec_params)
+            if args.greedy:
+                nxt = torch.argmax(logits[:, -1], dim=-1)
+            else:
+                probs = torch.softmax(logits[:, -1].float(), dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            return nxt[:, None], cache
+        return step
+
+    step_fns = codecs.build_program_table(codec, codec_params, make_step)
     rng = np.random.RandomState(args.seed + 1)
     tokens = torch.from_numpy(
         rng.randint(0, cfg.vocab_size, (args.batch, 1))).to(args.device)
@@ -111,17 +155,12 @@ def _run_lockstep(cfg, params, args):
     outs = [tokens]
     wire_total = 0
     for t in range(args.steps):
-        logits, cache = lm_lib.decode_step(params, cache, tokens, t, cfg,
-                                           codec=codec, codec_params=codec_params)
-        if args.greedy:
-            nxt = torch.argmax(logits[:, -1], dim=-1)
-        else:
-            probs = torch.softmax(logits[:, -1].float(), dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        tokens = nxt[:, None]
+        key = codecs.program_key(codec)
+        tokens, cache = step_fns[key](cache, tokens, t)
         if codec is not None:
+            step_codec = codec.buckets[key] if key is not None else codec
             wire_total += codecs.payload_wire_bytes(
-                codec, codec.payload_shape(args.batch))
+                step_codec, step_codec.payload_shape(args.batch))
         outs.append(tokens)
     _sync(args.device)
     dt = time.time() - t0
@@ -148,10 +187,17 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--codec", default="none",
-                    help="registry spec, e.g. 'c3sl:R=4|int8' or "
-                         "'c3sl:R=4,backend=pallas' (the CUDA kernels)")
+                    help="registry spec, e.g. 'c3sl:R=4|int8', "
+                         "'c3sl:R=4,backend=pallas' (the CUDA kernels), "
+                         "'adaptive:c3sl:R=8,min_R=2|int8', or a link spec "
+                         "'c3sl:R=4|int8 >> bwd:c3sl:R=2' (serving uses the "
+                         "forward channel)")
     ap.add_argument("--R", type=int, default=4,
                     help="default R for specs that omit it")
+    ap.add_argument("--pin-R", type=int, default=None,
+                    help="pin an adaptive codec's schedule to one bucket "
+                         "(serving has no SNR probe in the step; R is driven "
+                         "externally via engine.observe_snr or pinned)")
     ap.add_argument("--quant-kv", action="store_true",
                     help="int8 KV cache (2x less cache memory than bf16)")
     ap.add_argument("--seed", type=int, default=0)

@@ -30,23 +30,36 @@ runs: ``"cuda-kernel"``, ``"torch-plain"`` or ``"gather"``.
 The C3-SL codec (a spec string or codec object) compresses each step's
 cut-layer features across the slots, exactly as the reference.
 
+Adaptive-R codecs (``codec="adaptive:c3sl:R=8,min_R=2|int8"``): the engine
+makes ONE program set per R bucket (``build_program_table``, once, at
+construction) and picks the set on the host at every dispatch by
+``program_key``.  ``stats["payload_wire_bytes"]`` accumulates the bytes the
+served buckets really shipped, and ``r_served`` counts the served R (one
+count per executed decode step plus one per prefill chunk).  Serving has no
+SNR probe in the step: drive the controller with ``observe_snr`` or pin it
+(``engine.codec.pin(R)``).
+
+Per-direction link specs (``codec="c3sl:R=8|int8 >> bwd:c3sl:R=4"``): serving
+is forward-only, so the engine serves the link's forward channel
+(``wire_bytes_fwd`` == ``payload_wire_bytes``, ``wire_bytes_bwd`` == 0).
+
 Not ported yet, and raising ``NotImplementedError`` here: the legacy
-``prefill_mode="decode"``, ``preemption``, ``spec_decode``, ``withdraw``
-and stream events (ROADMAP.md slice 5, serving II); adaptive codecs and
-per-direction link specs (slice 3, the codec control plane); the
-sanitizer (slice 7, tooling).
+``prefill_mode="decode"``, ``preemption``, ``spec_decode`` (and a link's
+``draft:`` channel, which enables it), ``withdraw`` and stream events
+(ROADMAP.md slice 5, serving II); the sanitizer (slice 7, tooling).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
 
 from repro_torch import codecs as codecs_lib
+from repro_torch import transport
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import tree_leaves
 from repro_torch.kernels import paged_attention
@@ -55,7 +68,6 @@ from repro_torch.models.paging import PagedLayout
 from repro_torch.serving.paging import PageAllocator
 
 _SERVING_II = "ROADMAP.md slice 5 (serving II)"
-_CONTROL_PLANE = "ROADMAP.md slice 3 (the codec control plane)"
 
 
 def _not_ported(what: str, slice_name: str):
@@ -67,6 +79,7 @@ def _codec_execution_mode(codec, device) -> str:
     """How the codec's transform runs on ``device`` ("none" without one)."""
     if codec is None:
         return "none"
+    codec = getattr(codec, "current", codec)    # Adaptive-R wrapper
     codec = getattr(codec, "transform", codec)  # Chain of wire stages
     if hasattr(codec, "execution_mode"):
         return codec.execution_mode(device)
@@ -105,19 +118,30 @@ class BatchedEngine:
         # The engine runs where its params are (init_lm_params puts them on
         # the card unless asked for the CPU).
         self.device = params["embed"].device
-        # `codec` may be a ready codec object or a registry spec string
-        # (e.g. "c3sl:R=4|int8"), built against the decode cut layer
-        # (D = d_model) and clamped to the slot count; "none" is no codec.
-        if isinstance(codec, str):
-            if codec == "none":
+        # `codec` may be a ready codec object, a registry spec string
+        # (e.g. "c3sl:R=4|int8"), or a per-direction link spec/SplitLink
+        # ("c3sl:R=8|int8 >> bwd:c3sl:R=4").  Serving is forward-only, so
+        # the engine compresses with the link's FORWARD channel and accounts
+        # the backward direction as 0.  Specs are built against the decode
+        # cut layer (D = d_model) and clamped to the slot count; "none" is
+        # no codec.
+        # A link OBJECT (like a codec object) leaves clamping and init to
+        # its caller; caller-supplied params follow the LINK's tree.
+        self.link_spec = None
+        from_spec = isinstance(codec, str)
+        if from_spec and transport.is_link_spec(codec):
+            codec = transport.build_link(codec, D=cfg.d_model)
+        if isinstance(codec, transport.SplitLink):
+            self._refuse_draft(codec)
+            self.link_spec = codec.spec()
+            codec, codec_params = codec.serving_codec(codec_params)
+        if from_spec:
+            if isinstance(codec, str) and codec == "none":
                 codec = codec_params = None
             else:
-                if ">>" in codec:
-                    raise _not_ported("per-direction link specs", _CONTROL_PLANE)
-                if codec.strip().startswith("adaptive:"):
-                    raise _not_ported("adaptive codecs", _CONTROL_PLANE)
                 codec = codecs_lib.clamp_R(
-                    codecs_lib.build(codec, D=cfg.d_model), num_slots)
+                    codecs_lib.build(codec, D=cfg.d_model)
+                    if isinstance(codec, str) else codec, num_slots)
                 if codec_params is None:
                     codec_params = codec.init(torch.Generator().manual_seed(seed),
                                               device=self.device)
@@ -232,10 +256,23 @@ class BatchedEngine:
         self.stats["kv_read"] = kv_read
         self.stats["codec_execution_mode"] = _codec_execution_mode(self.codec,
                                                                    self.device)
+        # the served R schedule under an adaptive codec, as {R: count} with
+        # one count per EXECUTED decode step plus one per prefill chunk, so
+        # total() == decode_steps + prefill_chunks
+        self.r_served: Counter[int] = Counter()
+        self._adaptive = isinstance(self.codec, codecs_lib.AdaptiveC3SL)
         self.state = self._init_state()
         self._window_len = max(self.sync_every, self.interleave, 1)
+        # one program set per R bucket, made here and never again; a
+        # dispatch picks its set on the host (_bucket)
         self._programs = codecs_lib.build_program_table(
             self.codec, self.codec_params, self._make_programs)
+
+    @staticmethod
+    def _refuse_draft(link):
+        if link.draft is not None:
+            raise _not_ported("a link's draft: channel (speculative decoding)",
+                              _SERVING_II)
 
     # ------------------------------------------------------------------
     # device state and programs
@@ -347,9 +384,29 @@ class BatchedEngine:
         self.stats["payload_wire_bytes"] += nbytes
         self.stats["wire_bytes_fwd"] += nbytes
 
+    def _bucket(self):
+        """Host-side program-set key for this dispatch: the adaptive codec's
+        current R bucket, or None for a static (or absent) codec."""
+        return codecs_lib.program_key(self.codec)
+
+    def _current_codec(self):
+        """The codec the next dispatch applies (the bucket codec under
+        Adaptive-R, never the wrapper)."""
+        if self.codec is None:
+            return None
+        return self.codec.current if self._adaptive else self.codec
+
+    def observe_snr(self, snr_db, loss_slack=None):
+        """Feed the Adaptive-R controller between dispatches (no-op for
+        static codecs).  The serving step has no SNR probe, so the signal
+        comes from outside: the training side's schedule, an SLA monitor,
+        or a pinned R."""
+        if self._adaptive:
+            self.codec.observe(snr_db, loss_slack)
+
     def _step_wire_bytes(self) -> int:
         """Cut-layer bytes one decode step ships across the slots."""
-        c = self.codec
+        c = self._current_codec()
         if c is None:
             return 0
         return codecs_lib.payload_wire_bytes(c, c.payload_shape(self.num_slots))
@@ -357,7 +414,7 @@ class BatchedEngine:
     def _chunk_wire_bytes(self) -> int:
         """Cut-layer bytes one prefill chunk ships (the sequence-grouped
         3-D payload: chunk_size positions x num_slots/R groups x D)."""
-        c = self.codec
+        c = self._current_codec()
         if c is None:
             return 0
         shape = codecs_lib.chunk_payload_shape(c, self.num_slots, self.chunk_size)
@@ -445,17 +502,15 @@ class BatchedEngine:
     # fast path internals
     # ------------------------------------------------------------------
 
-    def _programs_now(self) -> dict:
-        return self._programs[codecs_lib.program_key(self.codec)]
-
     def _decode_window(self, n: int) -> int:
         """Run one decode window of up to n steps; returns the steps the
         device actually executed before the batch drained."""
         if n <= 0:
             return 0
         n = min(n, self._window_len)
+        bucket = self._bucket()
         stop_on_done = self._pool_starved()
-        executed, self.state = self._programs_now()["window"](
+        executed, self.state = self._programs[bucket]["window"](
             self.state, n, stop_on_done)
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += executed
@@ -468,6 +523,8 @@ class BatchedEngine:
                 self.stats["eos_early_exits"] += 1
             if self._retire_done(st):
                 self.state = {k: self._to_device(v) for k, v in st.items()}
+        if bucket is not None:
+            self.r_served[bucket] += executed
         if executed:
             self._dirty = True
         return executed
@@ -511,12 +568,15 @@ class BatchedEngine:
             completes[i] = slot.ingested >= len(slot.feed)
         if not valid.any():
             return
-        self.state = self._programs_now()["prefill"](
+        bucket = self._bucket()
+        self.state = self._programs[bucket]["prefill"](
             self.state, self._to_device(tokens), self._to_device(valid),
             self._to_device(completes))
         self.stats["dispatches"] += 1
         self.stats["prefill_chunks"] += 1
         self._account_fwd_bytes(self._chunk_wire_bytes())
+        if bucket is not None:
+            self.r_served[bucket] += 1
         if completes.any():
             # the completing call commits the row's first token: stamp TTFT
             # once the token exists on the device, not when it was enqueued

@@ -16,9 +16,11 @@ from repro import codecs as jcodecs  # noqa: E402
 from repro_torch import codecs  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 
-# the spec sweep of tests/test_codec_registry.py, without the codecs not
-# ported yet (dense, bnpp, adaptive)
+# the spec sweep of tests/test_codec_registry.py (the adaptive specs are in
+# tests/test_torch_adaptive.py)
 SPECS = [
+    "dense:R=4,D=128",
+    "bnpp:R=4,C=64,H=8,W=8",
     "identity:D=64",
     "c3sl:R=4,D=256",
     "c3sl:R=8,D=256,backend=direct",
@@ -77,8 +79,13 @@ def test_build_defaults_and_registry_surface():
     c = codecs.build("c3sl:R=8,D=64", D=4096, R=2)
     assert c.R == 8 and c.D == 64
     codecs.build("identity", D=64, R=4, unitary=False)
-    assert codecs.available() == {"transform": ["c3sl", "hrr", "identity"],
-                                  "wire": ["int8", "noop", "topk"]}
+    assert codecs.available() == jcodecs.available() == {
+        "transform": ["bnpp", "bottlenetpp", "c3sl", "dense", "dense-bottleneck",
+                      "hrr", "identity"],
+        "wire": ["int8", "noop", "topk"]}
+    for name in codecs.available()["transform"]:
+        c = codecs.build(name, D=64, R=2, C=16, H=4, W=4)
+        assert c.spec() == jcodecs.build(name, D=64, R=2, C=16, H=4, W=4).spec()
     spec = codecs.CodecSpec.parse("c3sl:R=4,unitary=true,backend=direct")
     assert spec.args == {"R": 4, "unitary": True, "backend": "direct"}
     assert codecs.CodecSpec.parse(str(spec)) == spec
@@ -94,7 +101,7 @@ def test_build_defaults_and_registry_surface():
     ("c3sl:R4,D=64", "malformed"),
     ("c3sl:R=4,D=64,backend=cuda", "unknown HRR backend"),
     ("c3sl:R=0,D=64", "R must be >= 1"),
-    ("adaptive:c3sl:R=4,D=64,min_R=2", "unknown transform"),
+    ("adaptive:c3sl:R=6,D=64,min_R=2", "power of two"),
     ("", "empty codec spec"),
 ])
 def test_bad_specs_raise(bad, match):

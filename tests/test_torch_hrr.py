@@ -50,6 +50,34 @@ def test_backends_match_reference(backend, cached_spectrum, G, R, D):
     assert S.shape == (G, D) and Zh.shape == (G, R, D)
 
 
+@pytest.mark.parametrize("name", ["circ_conv_fft", "circ_corr_fft",
+                                  "circ_conv_direct", "circ_corr_direct"])
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "float32"),
+                                    ("bfloat16", "bfloat16")])
+def test_pairwise_helpers_match_reference(name, dtypes):
+    """The four public helpers, with leading dims that broadcast, and the
+    reference's output dtype (the operands' promoted type).  bfloat16
+    inputs are rounded copies of the same values on both sides; the fft
+    forms transform in float32 on both sides, the direct forms sum in the
+    promoted type, so bfloat16 outputs are held to a bfloat16 step."""
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(3, 1, 64)).astype(np.float32)
+    b = rng.normal(size=(1, 4, 64)).astype(np.float32)
+    ja, jb = (jnp.asarray(x).astype(d) for x, d in zip((a, b), dtypes))
+    ta, tb = (_t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, d))
+              for x, d in zip((ja, jb), dtypes))
+    want = getattr(jhrr, name)(ja, jb)
+    got = getattr(hrr, name)(ta, tb)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    assert tuple(got.shape) == want.shape == (3, 4, 64)
+    tol = 2e-2 * float(jnp.abs(want.astype(jnp.float32)).max()) \
+        if got.dtype == torch.bfloat16 else TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=TOL, atol=tol)
+
+
 def test_key_spectrum_matches_reference():
     _, K = _data(1, 4, 128)
     np.testing.assert_allclose(hrr.key_spectrum(_t(K)).numpy(),

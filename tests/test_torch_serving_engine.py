@@ -19,6 +19,7 @@ from repro.codecs import build as jbuild  # noqa: E402
 from repro.configs import base as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
+from repro import transport as jtransport  # noqa: E402
 from repro_torch.configs import base as tconfigs  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
@@ -229,12 +230,70 @@ def test_execution_modes_in_stats():
     (dict(prefill_mode="decode"), "slice 5"),
     (dict(preemption=True), "slice 5"),
     (dict(spec_decode=True), "slice 5"),
-    (dict(codec="adaptive:c3sl:R=4,min_R=2"), "slice 3"),
-    (dict(codec="c3sl:R=4 >> bwd:c3sl:R=2"), "slice 3")])
+    (dict(codec="c3sl:R=4 >> draft:c3sl:R=2"), "slice 5"),
+    (dict(codec="c3sl:R=4 >> bwd:c3sl:R=2 >> draft:c3sl:R=2"), "slice 5")])
 def test_unported_options_raise(kw, match):
     _, tcfg, _, pt = _weights("plain")
     with pytest.raises(NotImplementedError, match=match):
         tengine.BatchedEngine(pt, tcfg, **kw)
+
+
+# the SNR stream both engines' controllers see, one value per tick
+SNRS = [9.0, 9.0, 9.0, -9.0, 9.0, -9.0, -9.0, 9.0, 9.0, 9.0, -9.0, 9.0] * 4
+
+
+def _drive_ticks(eng, req_cls, vocab):
+    """Submit the prompts, then tick to the end, feeding the controller one
+    SNR per tick between dispatches."""
+    for uid, p in enumerate(_prompts(vocab)):
+        eng.submit(req_cls(uid=uid, prompt=list(p), max_new_tokens=6))
+    ticks = 0
+    while eng.tick():
+        eng.observe_snr(SNRS[ticks % len(SNRS)])
+        ticks += 1
+    outs = {r.uid: r.out for r in eng.finished}
+    return outs, {k: eng.stats[k] for k in STAT_KEYS}, dict(eng.r_served), ticks
+
+
+@pytest.mark.parametrize("codec,kv_read", [
+    ("adaptive:c3sl:R=4,min_R=1,target_snr=0.0,ema=0.0", "gather"),
+    ("adaptive:c3sl:R=4,min_R=2,ema=0.0|int8", "kernel"),
+    ("c3sl:R=2|int8 >> bwd:c3sl:R=4", "gather"),
+    ("adaptive:c3sl:R=4,min_R=2,ema=0.0 >> bwd:c3sl:R=2", "kernel")])
+def test_control_plane_engine_matches_reference_engine(codec, kv_read):
+    """Adaptive and link specs on the reference's keys: greedy tokens, every
+    integer stat (the wire bytes of the buckets each dispatch really
+    served), the served R schedule and the tick count equal the reference
+    engine's under the same observe_snr calls; a link serves its forward
+    channel (bwd 0); the program sets are made once per bucket."""
+    jcfg, tcfg, pj, pt = _weights("plain")
+    if ">>" in codec:
+        cpj = jtransport.build_link(codec, D=jcfg.d_model).init(jax.random.PRNGKey(3))
+    else:
+        cpj = jbuild(codec, D=jcfg.d_model).init(jax.random.PRNGKey(3))
+    want = _drive_ticks(jengine.BatchedEngine(pj, jcfg, kv_layout="paged",
+                                              codec=codec, codec_params=cpj,
+                                              **ENGINE_KW),
+                        jengine.Request, jcfg.vocab_size)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = tengine.BatchedEngine(
+            pt, tcfg, kv_layout="paged", kv_read=kv_read, codec=codec,
+            codec_params=params_from_numpy(jax.tree.map(np.asarray, cpj), "cpu"),
+            **ENGINE_KW)
+    programs = dict(eng._programs)
+    got = _drive_ticks(eng, tengine.Request, tcfg.vocab_size)
+    assert got == want
+    assert eng._programs == programs
+    ladder = getattr(eng.codec, "ladder", (None,))
+    assert sorted(programs, key=str) == sorted(ladder, key=str)
+    assert sum(got[2].values()) == (got[1]["decode_steps"] + got[1]["prefill_chunks"]
+                                    if eng._adaptive else 0)
+    assert got[1]["wire_bytes_bwd"] == 0 and got[1]["wire_bytes_fwd"] > 0
+    if ">>" in codec:
+        assert eng.link_spec == jtransport.build_link(codec, D=tcfg.d_model).spec()
+    else:
+        assert len(got[2]) > 1          # the schedule really moved
 
 
 def test_unported_methods_raise():
@@ -272,7 +331,12 @@ def test_cache_bytes_match_reference():
      "--requests", "3", "--prompt-len", "6", "--max-new", "3",
      "--chunk-size", "4", "--cache-len", "32", "--codec", "c3sl:R=2"],
     ["--steps", "3", "--cache-len", "16", "--codec", "c3sl:R=2,backend=pallas",
-     "--quant-kv"]])
+     "--quant-kv"],
+    ["--engine", "--requests", "2", "--prompt-len", "5", "--max-new", "2",
+     "--chunk-size", "4", "--cache-len", "32", "--codec",
+     "adaptive:c3sl:R=2,min_R=1", "--pin-R", "2"],
+    ["--steps", "2", "--cache-len", "16", "--codec",
+     "adaptive:c3sl:R=2,min_R=1 >> bwd:c3sl:R=2", "--pin-R", "1"]])
 def test_serve_cli_runs_on_the_cpu(argv, capsys):
     from repro_torch.launch import serve
     with warnings.catch_warnings():
@@ -281,3 +345,13 @@ def test_serve_cli_runs_on_the_cpu(argv, capsys):
                     "--greedy", "--device", "cpu", *argv])
     out = capsys.readouterr().out
     assert "arch=deepseek-7b" in out and "cut-layer wire" in out
+    if "--pin-R" in argv and "--engine" in argv:
+        assert "served R schedule {2: " in out
+
+
+def test_serve_cli_pin_R_needs_an_adaptive_codec():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="--pin-R needs"):
+        serve.main(["--arch", "deepseek-7b", "--reduced", "--batch", "2",
+                    "--device", "cpu", "--steps", "1", "--codec", "c3sl:R=2",
+                    "--pin-R", "2"])

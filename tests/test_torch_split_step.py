@@ -182,6 +182,8 @@ def _ref_loss(logits, y):
 # are compared, and the client-side leaves follow from that cut gradient
 # through the front's backward, which this spec pins.
 FULL_SPEC = "c3sl:R=4,backend=pallas"
+# the VGG-16 cut, for the flat (D) and the nchw (C, H, W) codecs
+CUT = dict(D=2048, C=512, H=2, W=2)
 
 
 def _reference(vgg, spec):
@@ -198,8 +200,9 @@ def _reference(vgg, spec):
     net, batch, cache = vgg
     if spec in cache:
         return cache[spec]
-    jc = jcodecs.build(spec, D=2048)
+    jc = jcodecs.build(spec, **CUT)
     jcp = _np_tree(jc.init(jax.random.PRNGKey(1)))
+    trains = getattr(jc, "trainable", False)
     with jax.enable_x64(True):
         if "pieces" not in cache:
             net64 = jax.tree.map(lambda a: np.asarray(a, np.float64), net)
@@ -211,18 +214,23 @@ def _reference(vgg, spec):
                 argnums=(0, 1)))
             cache["pieces"] = (net64, z, vjp, back)
         net64, z, vjp, back = cache["pieces"]
-        def roundtrip(t):
-            return jsplit.apply_codec(jc, jcp, t)
-        zhat = jax.jit(roundtrip)(z)
+        # a trainable codec runs in float64 too (its convs take one dtype)
+        cp = jax.tree.map(lambda a: np.asarray(a, np.float64), jcp) if trains else jcp
+
+        def roundtrip(t, cp):
+            return jsplit.apply_codec(jc, cp, t)
+        zhat = jax.jit(roundtrip)(z, cp)
         loss, (g_back, g_zhat) = back(net64, zhat)
-        g_z = np.asarray(jax.jit(lambda t, ct: jax.vjp(roundtrip, t)[1](ct)[0])(
-            z, g_zhat), np.float64)
+        g_z, g_codec = jax.jit(lambda t, cp, ct: jax.vjp(roundtrip, t, cp)[1](ct))(
+            z, cp, g_zhat)
+        g_z = np.asarray(g_z, np.float64)
         grads = None
         if spec == FULL_SPEC:
             (g_front,) = jax.jit(lambda f, ct: f(ct))(vjp, g_z)
             grads = _np_tree(jax.tree.map(lambda a, b: a + b, g_back, g_front))
         cache[spec] = {"jcp": jcp, "loss": float(loss), "back": _np_tree(g_back),
-                       "cut": g_z, "grads": grads}
+                       "cut": g_z, "grads": grads,
+                       "codec": _np_tree(g_codec) if trains else None}
     return cache[spec]
 
 
@@ -230,7 +238,7 @@ def _port_setup(vgg, spec, jcp, dtype=np.float32, cut=None):
     """Port weights, split loss and batch; with a list ``cut``, the gradient
     at the front's output is appended to it during the backward pass."""
     net, _, _ = vgg
-    c = codecs.build(spec, D=2048)
+    c = codecs.build(spec, **CUT)
     params = {"net": params_from_numpy(jax.tree.map(lambda a: np.asarray(a, dtype),
                                                     net), "cpu"),
               "codec": params_from_numpy(jcp, "cpu")}
@@ -249,26 +257,40 @@ def _port_setup(vgg, spec, jcp, dtype=np.float32, cut=None):
 def _port_step_vs_reference(vgg, spec, dtype):
     """The port's step and the reference's, as pairs of float64 numpy trees
     to compare: every leaf for ``FULL_SPEC``; otherwise the back's leaves
-    and the cut gradient.  Returns (port loss, reference loss, pairs)."""
+    and the cut gradient, and every codec leaf for a trainable codec.
+    Returns (port loss, reference loss, pairs)."""
     ref = _reference(vgg, spec)
     cut = []
     params, loss_fn, batch = _port_setup(vgg, spec, ref["jcp"], dtype, cut)
-    lt, gt = split.split_value_and_grad(loss_fn, params, batch)
+    lt, gt, _ = split.split_value_and_grad(loss_fn, params, batch)
     assert lt.dtype == getattr(torch, np.dtype(dtype).name) and len(cut) == 1
+    assert sorted(gt) == (["codec", "net"] if ref["codec"] else ["net"])
     if ref["grads"] is not None:
-        return lt, ref["loss"], list(_leaf_pairs(gt, ref["grads"]))
-    pairs = [(g, w) for g, w in _leaf_pairs(gt, ref["back"]) if w.any()]
+        return lt, ref["loss"], list(_leaf_pairs(gt["net"], ref["grads"]))
+    pairs = [(g, w) for g, w in _leaf_pairs(gt["net"], ref["back"]) if w.any()]
     assert 0 < len(pairs) < len(jax.tree.leaves(ref["back"]))
     pairs.append((cut[0].numpy().astype(np.float64), ref["cut"]))
+    if ref["codec"] is not None:
+        got = params_to_numpy(gt["codec"])
+        for k, w in ref["codec"].items():
+            g = got[k].astype(np.float64)
+            if k in ("b_enc", "b_dec"):
+                # in front of a BatchNorm: exactly 0, float32 noise here
+                scale = np.abs(ref["codec"]["w" + k[1:]]).max()
+                assert np.abs(g).max() <= 1e-4 * scale, k
+            else:
+                pairs.append((g, np.asarray(w, np.float64)))
     return lt, ref["loss"], pairs
 
 
 @pytest.mark.parametrize("spec", ["c3sl:R=4", "c3sl:R=4|int8",
-                                  "c3sl:R=4,backend=pallas"])
+                                  "c3sl:R=4,backend=pallas", "bnpp:R=4"])
 def test_vgg16_split_loss_and_grads_match_reference(vgg, spec):
     """The whole slice in float32: front -> encode -> (int8) -> decode ->
     back -> loss, and the backward pass through the codec's adjoint, at
-    B=8, R=4, against the reference's float64 step."""
+    B=8, R=4, against the reference's float64 step.  BottleNet++ trains:
+    its codec leaves take their gradients too (the pre-BatchNorm biases,
+    whose exact gradient is 0, are left out)."""
     lt, lj, pairs = _port_step_vs_reference(vgg, spec, np.float32)
     np.testing.assert_allclose(float(lt), lj, rtol=LOSS_RTOL)
     _assert_pairs_l2_close(pairs)
@@ -293,14 +315,15 @@ def test_split_train_step_adam_matches_reference(vgg):
     lr = paper.VGG16_CIFAR10.lr
     o = opt.adam(lr)
     params, loss_fn, batch = _port_setup(vgg, "c3sl:R=4", jcp)
-    _, grads = split.split_value_and_grad(loss_fn, params, batch)
+    _, grads, _ = split.split_value_and_grad(loss_fn, params, batch)
     step = split.make_split_train_step(loss_fn, o)
-    new_p, state, lt = step(params, o.init(params["net"]), batch)
+    new_p, state, lt, _ = step(
+        params, o.init(split.trainable_params(loss_fn, params)), batch)
     np.testing.assert_allclose(float(lt), lj, rtol=LOSS_RTOL)
     assert int(state["count"]) == 1 and new_p["codec"] is params["codec"]
     net = _np_tree(vgg[0])
     jo = jopt.adam(lr)
-    gnp = params_to_numpy(grads)
+    gnp = params_to_numpy(grads["net"])
     new_j = jax.jit(lambda g, n: jopt.apply_updates(n, jo.update(g, jo.init(n), n)[0]))(
         gnp, net)
     # Adam's first move is -lr * g / (|g| + eps): compared where |g| stands
