@@ -14,16 +14,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    bfloat16, which the kernels round once on output, to 1e-2 of the
    compared values' max|want| and 5e-3 in relative L2.
    - bind and unbind in float32 and bfloat16, through the kernel that
-     ``circconv.route(D)`` picks (the FFT-form kernels for a power of two
-     D in [4, 16384], the direct ones otherwise; each call's route is
+     ``circconv.route(D)`` picks (the one-pass FFT-form kernels for a power
+     of two D in [4, 16384], the four-step ones for a power of two past it
+     up to 2^22, the direct ones for every other D; each call's route is
      checked on ``ROUTE_LAUNCHES``): the reference's test shapes, the
      main-path shapes, ragged D, and the FFT kernels' edges (R 1, 5, 8, 9,
-     16; G 1, 2, 128; D 4 to 32, the route's upper limit 16384 and twice
-     it, which goes direct), and every (G, R) the control plane's
-     (R_fwd, R_bwd) programs launch (phase 5) at D 2048 and 4096; the direct kernels called explicitly at the
-     main-path shapes; two runs of each FFT kernel bitwise equal; the
-     autograd Functions' gradients against autograd of the plain version
-     (1e-4); zero key gradient;
+     16; G 1, 2, 128; D 4 to 32, the route's upper limit 16384, and 20480,
+     which goes direct), every (G, R) the control plane's (R_fwd, R_bwd)
+     programs launch (phase 5) at D 2048 and 4096, and the four-step
+     kernels at (1, 1, 32768) and (2, 4, 65536) and at the LM training
+     shape (4, 4, 524288), there against a float64 torch.fft oracle made in
+     the phase (the O(D^2) plain version would gather terabytes), with the
+     adjoint identity <bind(Z), S> = <Z, unbind(S)> to float32 rounding;
+     the direct kernels called explicitly at the main-path shapes; two runs
+     of each FFT and four-step kernel bitwise equal; the autograd
+     Functions' gradients against autograd of the plain version (1e-4);
+     zero key gradient;
    - the two paged-attention decode kernels in float32, bfloat16 and over
      int8 pools (in float32 and in bfloat16 compute): the geometry of
      tests/test_paged_kernel.py (shuffled
@@ -102,10 +108,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    slot at position 511 (with the wrapper's split plan, the share of the
    bound and the host-included time), its plain version and, for the
    float kernel, gather_pages followed by
-   ``scaled_dot_product_attention``.  Host included: the VGG-16 train step
+   ``scaled_dot_product_attention``.  The four-step kernels at the LM
+   training shape (4, 4, 524288): the kernel, the torch.fft route, the
+   bound, and the direct kernel that took this D before, one call a side;
+   their plain version at (2, 4, 65536) (three single calls, host
+   included).  Host
+   included: the VGG-16 train step
    with the kernel and the fft backend in turns, and a ``torch.profiler``
    breakdown of it; the serving engine's decode-step time, tokens/s and
    mean TTFT, and a profile of one decode window.
+7. The LM training path, after the rest and ``free_cuda()``: ``deepseek-7b``
+   at full width (d_model 4096, 32 heads of 128, d_ff 11008, vocab
+   102400), its depth cut to 8 layers (2.458 B parameters; float32 params,
+   gradients and two AdamW moments take 39.3 GB, 110.6 GB at the full 30),
+   float32 with TF32 off, B 16, S 128, ``c3sl:R=4,backend=pallas`` at the
+   superblock midpoint (after layer 4; D = 524288, G = 4), AdamW at 1e-3
+   with the global-norm clip at 1.0: ``launch.train.run_standard`` on a
+   config of ``dataclasses.replace(get_config("deepseek-7b"),
+   num_layers=8)``, from the CLI's own parser.
+   - Step-0 parity: the loss (1e-6 relative) and every gradient leaf
+     (1e-4 of its max) through the kernels against ``backend=fft`` on the
+     same weights and batch; the cut SNR.
+   - 3 steps: finite losses, exactly 2 bind and 2 unbind launches a step,
+     all on the four-step route and all at (4, 4, 524288); the wire bytes
+     a direction a step exactly 4 * 524288 * 4 = 8,388,608.
+   - The checkpoint ``--ckpt-dir`` wrote under ``chiprun_out/`` restored
+     bitwise, then deleted (9.8 GB).
+   - The step time (CUDA events around single steps, the median of 3,
+     host included) and a ``torch.profiler`` breakdown of 2 steps: device
+     time, idle share, the codec's share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -146,11 +177,19 @@ KERNEL_SHAPES = [(1, 1, 64), (2, 2, 128), (4, 4, 128), (8, 2, 256), (3, 5, 96),
                  (4, 3, 127), (2, 2, 4097)]
 # the FFT kernels' edges: R 1, 5, 8, 9, 16 (bind's cluster is min(R, 8)
 # blocks, block 0 then takes two keys); G 1, 2 (decode), 128 (prefill
-# chunk); D from 4, the route's upper limit 16384 and twice it (direct)
+# chunk); D from 4, the route's upper limit 16384, and a D past it that is
+# not a power of two (direct)
 FFT_EDGE_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
                    (2, 16, 4096), (1, 4, 4096), (2, 4, 4096), (128, 4, 4096),
                    (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384),
-                   (1, 1, 32768)]
+                   (1, 1, 20480)]
+# the four-step kernels (power-of-two D past 16384): against the plain
+# version (its gather in chunks there) at two shapes, and at the LM training
+# path's shape (G = B/R = 4, R 4, D = S * d_model = 128 * 4096), where the
+# O(D^2) plain version would gather terabytes, against a float64 torch.fft
+# oracle computed in the phase (never on the path)
+FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536)]
+LM_SHAPE = (4, 4, 524288)
 # the direct kernels, called explicitly at the main-path shapes
 DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
 # phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
@@ -195,6 +234,19 @@ CP_FAULT_BURSTS = {"fwd": 2, "bwd": 5}
 CP_FAULT_BUDGET = {"fwd": 1, "bwd": 0}
 CP_PARITY_PAIR = (4, 2)          # (R_fwd, R_bwd) of the step-0 parity
 CP_BNPP_STEPS = 3
+
+# phase 7, the LM training path: deepseek-7b at full width, depth cut so
+# that float32 params, gradients and two AdamW moments (39.3 GB at 8
+# layers, 110.6 GB at the full 30) fit the card; the codec at the
+# superblock midpoint (after layer 4), D = S * d_model = 524288, G = 4
+LM_ARCH = "deepseek-7b"
+LM_LAYERS = 8
+LM_BATCH, LM_SEQ = 16, 128
+LM_CODEC = "c3sl:R=4,backend=pallas"
+LM_STEPS = 3
+LM_TIMED_STEPS = 3
+LM_PROFILED_STEPS = 2
+LM_WIRE_BYTES = 4 * 524288 * 4   # G rows of D float32, a direction a step
 
 
 class SmokeFailure(RuntimeError):
@@ -256,6 +308,7 @@ def close(got, want, tol) -> tuple[bool, float]:
 
 
 BF16_READINGS: dict = {}   # kernel -> worst (max|err|/max|want|, rel L2)
+ADJOINT_GAPS: dict = {}    # "GxRxD" -> |<bind(Z), S> - <Z, unbind(S)>| / norms
 
 
 def close_as(got, want, dtype_name, kernel) -> tuple[bool, float]:
@@ -277,9 +330,21 @@ def close_as(got, want, dtype_name, kernel) -> tuple[bool, float]:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def circconv_pair(name, kernel_route, x, kext):
-    """(kernel output, float64 plain output) of bind or unbind through the
-    named route's kernel, checking that exactly that kernel launched."""
+def fft_oracle(name, x, kext):
+    """bind or unbind in float64 through torch.fft: the check of the
+    four-step kernels where the O(D^2) plain version is out of reach."""
+    import torch
+    X = torch.fft.fft(x.double(), dim=-1)
+    Kf = torch.fft.fft(kext[:, :x.shape[-1]].double(), dim=-1)
+    if name == "bind_superpose":
+        return torch.fft.ifft((X * Kf).sum(-2), dim=-1).real
+    return torch.fft.ifft(X[:, None, :] * Kf.conj(), dim=-1).real
+
+
+def circconv_pair(name, kernel_route, x, kext, oracle=False):
+    """(kernel output, float64 plain output, or the float64 torch.fft
+    oracle's with ``oracle``) of bind or unbind through the named route's
+    kernel, checking that exactly that kernel launched."""
     import torch
     from repro_torch.kernels import circconv
     on, plain = {"bind_superpose": (circconv._bind_superpose_on,
@@ -287,7 +352,8 @@ def circconv_pair(name, kernel_route, x, kext):
                  "unbind": (circconv._unbind_on, circconv.unbind_plain)}[name]
     before = dict(circconv.ROUTE_LAUNCHES)
     got = on(kernel_route, x, kext)
-    want = plain(x.double(), kext.double())
+    want = (fft_oracle(name, x, kext) if oracle
+            else plain(x.double(), kext.double()))
     torch.cuda.synchronize()
     after = dict(circconv.ROUTE_LAUNCHES)
     check(all(after[k] - before[k] == (k == (name, kernel_route)) for k in after),
@@ -304,18 +370,23 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels import circconv, ops
 
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"bind_superpose": {}, "unbind": {}, "bind_superpose_direct": {},
-            "unbind_direct": {}}
-    routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()))
-    cases = ([(s, circconv.route(s[-1]), "") for s in routed]
+    errs = {"bind_superpose": {}, "unbind": {}, "bind_superpose_fft4": {},
+            "unbind_fft4": {}, "bind_superpose_direct": {}, "unbind_direct": {}}
+    routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()
+                                + FFT4_SHAPES + [LM_SHAPE]))
+    # errors kept by kernel: the four-step kernels' apart from the others
+    cases = ([(s, r, "_fft4" if r == "fft4" else "")
+              for s in routed for r in [circconv.route(s[-1])]]
              + [(s, "direct", "_direct") for s in DIRECT_SHAPES])
     for (G, R, D), kernel_route, suffix in cases:
         K = hrr.generate_keys(gen, R, D, device=dev)
         kext = ops._kext(K)
         Z32 = torch.randn((G, R, D), generator=gen).to(dev)
+        oracle = (G, R, D) == LM_SHAPE
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             Z = Z32.to(dt)
-            got, want = circconv_pair("bind_superpose", kernel_route, Z, kext)
+            got, want = circconv_pair("bind_superpose", kernel_route, Z, kext,
+                                      oracle)
             check(got.dtype == dt and got.shape == (G, D), f"bind {G,R,D} {name}: "
                   f"{got.dtype} {tuple(got.shape)}")
             ok, e = close_as(got, want, name, "bind_superpose" + suffix)
@@ -323,19 +394,29 @@ def kernel_checks(dev) -> dict:
                   f"max err {e}")
             errs["bind_superpose" + suffix][f"{G}x{R}x{D}/{name}"] = e
             S = want.to(dt)
-            got_u, want = circconv_pair("unbind", kernel_route, S, kext)
+            got_u, want = circconv_pair("unbind", kernel_route, S, kext, oracle)
             check(got_u.dtype == dt and got_u.shape == (G, R, D),
                   f"unbind {G,R,D} {name}")
             ok, e = close_as(got_u, want, name, "unbind" + suffix)
             check(ok, f"unbind {kernel_route} kernel != plain at {(G, R, D)} {name}: "
                   f"max err {e}")
             errs["unbind" + suffix][f"{G}x{R}x{D}/{name}"] = e
-            if kernel_route == "fft" and name == "float32":
+            if kernel_route in ("fft", "fft4") and name == "float32":
                 again = (circconv.bind_superpose_kernel(Z, kext),
                          circconv.unbind_kernel(S, kext))
                 torch.cuda.synchronize()
                 check(torch.equal(again[0], got) and torch.equal(again[1], got_u),
-                      f"fft kernels not bitwise repeatable at {(G, R, D)}")
+                      f"{kernel_route} kernels not bitwise repeatable at {(G, R, D)}")
+            if oracle and name == "float32":
+                # the adjoint identity <bind(Z), S> = <Z, unbind(S)>, to
+                # float32 rounding: each kernel's backward is the other
+                lhs = (got.double() * S.double()).sum()
+                rhs = (Z.double() * got_u.double()).sum()
+                gap = float((lhs - rhs).abs() / (got.double().norm()
+                                                 * S.double().norm()))
+                check(gap <= 1e-5, f"fft4 adjoint identity off by {gap} at "
+                      f"{(G, R, D)}")
+                ADJOINT_GAPS[f"{G}x{R}x{D}"] = gap
         del K, kext, Z32, Z, S, got, got_u, want
         free_cuda()
 
@@ -590,10 +671,12 @@ def route_counts() -> dict:
     return {f"{k}/{r}": n for (k, r), n in circconv.ROUTE_LAUNCHES.items()}
 
 
-def check_fft_route(routes: dict, per_kernel: int, what: str):
-    """Every circconv launch went to the FFT kernels: ``per_kernel`` each."""
-    want = {f"{k}/{r}": per_kernel if r == "fft" else 0
-            for k in ("bind_superpose", "unbind") for r in ("fft", "direct")}
+def check_fft_route(routes: dict, per_kernel: int, what: str, route="fft"):
+    """Every circconv launch went to ``route``'s kernels: ``per_kernel``
+    each."""
+    from repro_torch.kernels import circconv
+    want = {f"{k}/{r}": per_kernel if r == route else 0
+            for k in ("bind_superpose", "unbind") for r in circconv.ROUTES}
     check(routes == want, f"{what}: circconv routes {routes}, want {want}")
 
 
@@ -1358,43 +1441,61 @@ def cp_bnpp_resnet(dev) -> dict:
 # phase 6: times
 # --------------------------------------------------------------------------
 
+def circconv_operands(G, R, D, dev, seed=SEED + 1):
+    """Keys, their spectrum, Kext, Z (G, R, D) and S (G, D), float32."""
+    import torch
+    from repro_torch.core import hrr
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(seed)
+    K = hrr.generate_keys(gen, R, D, device=dev)
+    Z = torch.randn((G, R, D), generator=gen).to(dev)
+    S = torch.randn((G, D), generator=gen).to(dev)
+    return K, hrr.key_spectrum(K), ops._kext(K), Z, S
+
+
+def circconv_bound(name, G, R, D) -> dict:
+    """The least work of bind or unbind at (G, R, D) in float32, whatever
+    the algorithm: Z or S, the keys K (R, D) and the output each cross HBM
+    once, and the operations are the FFT form's (rfft of every data row and
+    key, one complex multiply-add per frequency and binding, an irfft per
+    output row; a real transform of length D at 2.5 D log2 D).  The direct
+    O(D^2) form (2 G R D^2 FLOPs) is kept beside it as a design figure."""
+    flops = (G * R + G + R) * 2.5 * D * math.log2(D) + G * R * (D // 2 + 1) * 8
+    x, out = (G * R * D, G * D) if name == "bind_superpose" else (G * D, G * R * D)
+    nbytes = (x + R * D + out) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    direct_flops = 2 * G * R * D * D
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "direct_flops": direct_flops,
+            "direct_flops_ms": direct_flops / F32_PEAK_FLOPS * 1e3}
+
+
+def circconv_calls(G, R, D, dev):
+    """name -> (data, route entry point, plain version, torch.fft route) of
+    bind and unbind at (G, R, D), and the Kext the entry points take."""
+    from repro_torch.core import hrr
+    from repro_torch.kernels import circconv
+    K, KF, kext, Z, S = circconv_operands(G, R, D, dev)
+    return {"bind_superpose": (Z, circconv._bind_superpose_on,
+                               circconv.bind_superpose_plain,
+                               lambda: hrr._bind_impl(Z, K, KF, "fft")),
+            "unbind": (S, circconv._unbind_on, circconv.unbind_plain,
+                       lambda: hrr._unbind_impl(S, K, KF, "fft"))}, kext
+
+
 def kernel_times(dev, G, R, D) -> dict:
     """bind and unbind at (G, R, D): the kernel ``route(D)`` picks (``ms``,
     also host included), the FFT kernel where D is a power of two it takes,
     the direct kernel, the plain version and the torch.fft route."""
-    import torch
-    from repro_torch.core import hrr
-    from repro_torch.kernels import circconv, ops
-
-    gen = torch.Generator().manual_seed(SEED + 1)
-    K = hrr.generate_keys(gen, R, D, device=dev)
-    KF = hrr.key_spectrum(K)
-    kext = ops._kext(K)
-    Z = torch.randn((G, R, D), generator=gen).to(dev)
-    S = torch.randn((G, D), generator=gen).to(dev)
-    # The least work of the function, whatever the algorithm: Z or S, the
-    # keys K (R, D) and the output each cross HBM once, and the operations
-    # are the FFT form's (rfft of every data row and key, one complex
-    # multiply-add per frequency and binding, an irfft per output row; a
-    # real transform of length D at 2.5 D log2 D).  The direct O(D^2) form
-    # (2 G R D^2 FLOPs) is kept beside it as a design figure.
-    fft_rows = G * R + G + R
-    flops = fft_rows * 2.5 * D * math.log2(D) + G * R * (D // 2 + 1) * 8
-    direct_flops = 2 * G * R * D * D
+    from repro_torch.kernels import circconv
+    calls, kext = circconv_calls(G, R, D, dev)
     kernel_route = circconv.route(D)
     out = {}
-    for name, x, on, plain, fft, out_bytes in (
-            ("bind_superpose", Z, circconv._bind_superpose_on,
-             circconv.bind_superpose_plain,
-             lambda: hrr._bind_impl(Z, K, KF, "fft"), G * D * 4),
-            ("unbind", S, circconv._unbind_on, circconv.unbind_plain,
-             lambda: hrr._unbind_impl(S, K, KF, "fft"), G * R * D * 4)):
-        nbytes = x.numel() * 4 + K.numel() * 4 + out_bytes
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_PEAK_FLOPS * 1e3
+    for name, (x, on, plain, fft) in calls.items():
         by_route = {r: cuda_ms(lambda r=r: on(r, x, kext))
-                    for r in circconv.ROUTES
-                    if r == "direct" or kernel_route == "fft"}
+                    for r in dict.fromkeys((kernel_route, "direct"))}
         out[name] = {
             "shape": [G, R, D], "route": kernel_route,
             "ms": by_route[kernel_route],
@@ -1403,12 +1504,43 @@ def kernel_times(dev, G, R, D) -> dict:
             "fft_ms": by_route.get("fft"), "direct_ms": by_route["direct"],
             "plain_ms": cuda_ms(lambda: plain(x, kext)),
             "library_ms": cuda_ms(fft),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
-            "direct_flops": direct_flops,
-            "direct_flops_ms": direct_flops / F32_PEAK_FLOPS * 1e3,
+            **circconv_bound(name, G, R, D),
         }
+    return out
+
+
+def fft4_times(dev) -> dict:
+    """bind and unbind on the four-step route at the LM training shape:
+    the kernel (device time, and host included), the torch.fft route of the
+    same function (the library yardstick), the bound, and the direct kernel
+    that took this D before, one call a side.  The plain version's O(D^2)
+    gather is out of reach there (terabytes), so it is timed at the largest
+    shape phase 2 holds it at, FFT4_SHAPES[-1], in fewer runs, host
+    included."""
+    G, R, D = LM_SHAPE
+    calls, kext = circconv_calls(G, R, D, dev)
+    out = {}
+    for name, (x, on, _, fft) in calls.items():
+        out[name] = {
+            "shape": [G, R, D], "route": "fft4",
+            "ms": cuda_ms(lambda: on("fft4", x, kext)),
+            "ms_host_included": cuda_ms(lambda: on("fft4", x, kext),
+                                        hide_host=False),
+            "library_ms": cuda_ms(fft),
+            "direct_one_call_ms": cuda_ms(lambda: on("direct", x, kext),
+                                          warmup=0, calls=1, reps=1,
+                                          hide_host=False),
+            **circconv_bound(name, G, R, D)}
+    del calls, kext
+    free_cuda()
+    G, R, D = FFT4_SHAPES[-1]
+    calls, kext = circconv_calls(G, R, D, dev)
+    for name, (x, _, plain, _) in calls.items():
+        out[name]["plain_shape"] = [G, R, D]
+        # host included: its chunked gather is a Python loop of hundreds
+        # of launches, which outlasts the sleep that hides the host
+        out[name]["plain_ms"] = cuda_ms(lambda: plain(x, kext), warmup=1,
+                                        calls=1, reps=3, hide_host=False)
     return out
 
 
@@ -1567,6 +1699,170 @@ def step_profile(dev, steps=5) -> dict:
                     for n, t, c in rows[:12]]}
 
 
+# --------------------------------------------------------------------------
+# phase 7: the LM training path
+# --------------------------------------------------------------------------
+
+def lm_config():
+    """deepseek-7b at full width (d_model 4096, 32 heads of 128, d_ff
+    11008, vocab 102400), its depth cut to LM_LAYERS."""
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+
+
+def lm_args(ckpt_dir):
+    """``launch/train.py``'s flags for the run: the CLI's own parser."""
+    from repro_torch.launch import train
+    return train.build_parser().parse_args([
+        "--arch", LM_ARCH, "--steps", str(LM_STEPS), "--batch", str(LM_BATCH),
+        "--seq", str(LM_SEQ), "--codec", LM_CODEC, "--seed", str(SEED),
+        "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"])
+
+
+def lm_parity(params, cfg, args, dev) -> dict:
+    """Step 0's loss and gradients through the kernels against
+    ``backend=fft`` (torch.fft on the card) on the same weights, keys and
+    batch: the loss within 1e-6 relative and every gradient leaf within
+    1e-4 of its max (the control plane's step-0 tolerances), and the cut
+    SNR of both."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokenDataset
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
+    batch = data.batch(args.batch, 0, device=dev)
+    res = {}
+    for backend in ("pallas", "fft"):
+        codec, cp = train.make_codec(LM_CODEC.replace("pallas", backend),
+                                     args.seq * cfg.d_model, max_R=args.batch,
+                                     device=dev)
+        tp = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = lm_lib.lm_loss(tp, batch, cfg, codec=codec,
+                                       codec_params=cp, with_metrics=True)
+        grads = torch.autograd.grad(loss, tree_leaves(tp))
+        res[backend] = (float(loss.detach()), float(metrics["cut_snr"].detach()),
+                        grads)
+        del tp, loss, metrics
+    (lk, sk, gk), (lf, sf, gf) = res["pallas"], res["fft"]
+    rel = abs(lk - lf) / abs(lf)
+    check(rel <= 1e-6, f"lm step-0 loss kernels {lk} vs fft {lf}")
+    gerr = leaf_rel_err(gk, gf)
+    check(gerr <= 1e-4, f"lm step-0 grads kernels vs fft: {gerr}")
+    return {"loss_kernel": lk, "loss_fft": lf, "loss_rel_err": rel,
+            "grad_leaf_rel_err": gerr, "cut_snr_kernel": sk, "cut_snr_fft": sf}
+
+
+def lm_training(dev) -> dict:
+    """(a) step-0 parity; (b) ``launch.train.run_standard`` for LM_STEPS
+    steps from the same weights, launch counts reset just before and read
+    just after: finite losses, 2 + 2 circconv launches a step, all on the
+    four-step route at LM_SHAPE, wire bytes a direction a step; (c) the
+    checkpoint it wrote (``--ckpt-dir``) restored bitwise, then deleted;
+    (d) the step time (CUDA events around single steps, the median of
+    LM_TIMED_STEPS, host included) and a ``torch.profiler`` breakdown over
+    LM_PROFILED_STEPS steps: device time, idle share, the codec's share."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data.pipeline import SyntheticTokenDataset
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.transport import split_comm_bytes
+
+    cfg = lm_config()
+    ckpt_dir = OUT_DIR / "lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = lm_args(ckpt_dir)
+    # run_standard's own init (the seed's generator on the card), made here
+    # so that the parity runs on the weights the run starts from
+    params = lm_lib.init_lm_params(args.seed, cfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    parity = lm_parity(params, cfg, args, dev)
+    free_cuda()
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    circconv.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train.run_standard(args, cfg, params=params, out=out)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, routes = dict(circconv.LAUNCHES), route_counts()
+    shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+              for k, n in circconv.SHAPE_LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(losses) == LM_STEPS and all(map(math.isfinite, losses)),
+          f"lm training losses {losses}")
+    want = {"bind_superpose": 2 * LM_STEPS, "unbind": 2 * LM_STEPS}
+    check(counts == want, f"lm training launches {counts}, want {want}")
+    check_fft_route(routes, 2 * LM_STEPS, "lm training", route="fft4")
+    G, R, D = LM_SHAPE
+    want_shapes = {f"{k}/{G}x{R}x{D}": 2 * LM_STEPS
+                   for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"lm training shapes {shapes}, want {want_shapes}")
+    codec = out["codec"]
+    mode = getattr(codec, "transform", codec).execution_mode(dev)
+    check(mode == "cuda-kernel", f"{LM_CODEC} ran as {mode}, not the CUDA kernels")
+    wire_fwd = split_comm_bytes(codec, args.batch, directions=1)
+    wire_bwd = split_comm_bytes(codec, args.batch) - wire_fwd
+    check(wire_fwd == wire_bwd == LM_WIRE_BYTES,
+          f"lm wire bytes {wire_fwd} + {wire_bwd}, want {LM_WIRE_BYTES} each")
+
+    t0 = time.perf_counter()
+    template = {"params": out["params"]}
+    restored = restore_checkpoint(str(ckpt_dir), LM_STEPS, template)
+    restore_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(restored), tree_leaves(template)))
+    check(bitwise, "lm checkpoint did not restore bitwise")
+    ckpt_bytes = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
+    del restored
+    shutil.rmtree(ckpt_dir)     # 9.8 GB: the output directory keeps the record only
+    free_cuda()
+
+    step = out["step_fns"][None]          # the static codec's one callable
+    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
+    batch = data.batch(args.batch, LM_STEPS, device=dev)
+    probe = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def one():
+        step(out["params"], out["opt_state"], batch, probe)
+
+    step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS, hide_host=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILED_STEPS
+    rows = device_rows(prof, LM_PROFILED_STEPS)
+    busy = sum(r[1] for r in rows)
+    circ = sum(r[1] for r in rows if "columns_kernel" in r[0] or "rows_kernel" in r[0])
+    prof_out = None if not busy else {
+        "device_ms_per_step": busy, "wall_ms_per_step": wall_ms,
+        "idle_share_profiled": 1 - busy / wall_ms,
+        "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
+        "circconv_ms_per_step": circ, "circconv_share": circ / busy,
+        "top": [{"name": n[:90], "ms_per_step": t, "calls_per_step": c}
+                for n, t, c in rows[:10]]}
+    del out, step, batch
+    free_cuda()
+    return {"arch": LM_ARCH, "layers": LM_LAYERS, "params": n_params,
+            "batch": LM_BATCH, "seq": LM_SEQ, "codec": LM_CODEC,
+            "parity": parity, "losses": losses, "launches": counts,
+            "route_launches": routes, "shape_launches": shapes,
+            "wire_bytes": [wire_fwd, wire_bwd], "run_s": run_s,
+            "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes,
+            "restore_s": restore_s, "step_ms": step_ms, "profile": prof_out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1717,6 +2013,8 @@ def main() -> int:
 
     times = {f"{G}x{R}x{D}": kernel_times(dev, G, R, D) for G, R, D in TIME_SHAPES}
     free_cuda()
+    fft4t = fft4_times(dev)
+    free_cuda()
     ptimes = paged_times(dev)
     steps = step_times(dev)
     prof = step_profile(dev)
@@ -1730,6 +2028,13 @@ def main() -> int:
                   f"plain {t['plain_ms']:.4f} ms, torch.fft {t['library_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), direct-form "
                   f"FLOPs at the f32 peak {t['direct_flops_ms']:.4f} ms", flush=True)
+    for name, t in fft4t.items():
+        print(f"time [{card}] {name} G,R,D={t['shape']} route fft4: kernel "
+              f"{t['ms']:.4f} ms, host included {t['ms_host_included']:.4f} ms, "
+              f"torch.fft {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB), direct kernel one "
+              f"call {t['direct_one_call_ms']:.1f} ms; plain at "
+              f"G,R,D={t['plain_shape']} {t['plain_ms']:.2f} ms", flush=True)
     for name, per in ptimes.items():
         for shape, t in per.items():
             lib = ("none" if t["library_ms"] is None
@@ -1786,6 +2091,40 @@ def main() -> int:
             print(f"  host {r['ms_per_step']:.3f} ms/step x{r['calls_per_step']:.0f}"
                   f"  {r['name']}")
 
+    free_cuda()
+    lm = lm_training(dev)
+    lap("lm_training")
+    par, lp = lm["parity"], lm["profile"]
+    print(f"lm training {LM_ARCH} full width, {LM_LAYERS} layers (cut after "
+          f"superblock {LM_LAYERS // 2}), {lm['params'] / 1e9:.3f} B params, "
+          f"B {LM_BATCH} S {LM_SEQ}, {LM_CODEC} (D {LM_SHAPE[2]}): step-0 "
+          f"kernels vs backend=fft loss {par['loss_kernel']:.6f} vs "
+          f"{par['loss_fft']:.6f} (rel err {par['loss_rel_err']:.3g}), grad leaf "
+          f"rel err {par['grad_leaf_rel_err']:.3g}, cut SNR "
+          f"{par['cut_snr_kernel']:.4f} dB (fft {par['cut_snr_fft']:.4f})",
+          flush=True)
+    print(f"lm training run_standard: {LM_STEPS} steps, losses "
+          f"{[round(v, 4) for v in lm['losses']]}, launches {lm['launches']}, "
+          f"routes {lm['route_launches']}, by shape {lm['shape_launches']}, wire "
+          f"fwd {lm['wire_bytes'][0]:,d} B + bwd {lm['wire_bytes'][1]:,d} B a "
+          f"step, peak {lm['peak_gb']:.1f} GB; checkpoint {lm['ckpt_bytes']:,d} B "
+          f"restored bitwise in {lm['restore_s']:.1f} s", flush=True)
+    print(f"time [{card}] lm train step ({LM_ARCH} x{LM_LAYERS} layers, B "
+          f"{LM_BATCH} S {LM_SEQ}, {LM_CODEC}): {lm['step_ms']:.1f} ms (median "
+          f"of {LM_TIMED_STEPS}, host included)", flush=True)
+    if lp is None:
+        print(f"profile [{card}] lm train step: the profiler saw no device time "
+              "(not measured)")
+    else:
+        print(f"profile [{card}] lm train step: device {lp['device_ms_per_step']:.1f} "
+              f"ms of {lp['wall_ms_per_step']:.1f} ms wall (idle "
+              f"{lp['idle_share_profiled']:.3f} profiled, "
+              f"{lp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step); "
+              f"circconv kernels {lp['circconv_ms_per_step']:.4f} ms "
+              f"({lp['circconv_share']:.5f})", flush=True)
+        for r in lp["top"]:
+            print(f"  {r['ms_per_step']:.3f} ms x{r['calls_per_step']}  {r['name']}")
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -1796,6 +2135,8 @@ def main() -> int:
                ("unbind", "unbind", "fft", "circconv_fft.cu"),
                ("bind_superpose_direct", "bind_superpose", "direct", "circconv.cu"),
                ("unbind_direct", "unbind", "direct", "circconv.cu"),
+               ("bind_superpose_fft4", "bind_superpose", "fft4", "circconv_fft4.cu"),
+               ("unbind_fft4", "unbind", "fft4", "circconv_fft4.cu"),
                ("paged_attention", "paged_attention", None, "paged_attention.cu"),
                ("paged_attention_quant", "paged_attention_quant", None,
                 "paged_attention.cu")]
@@ -1803,6 +2144,7 @@ def main() -> int:
     # routed float32 calls at the VGG-16 train step's shape and every
     # control-plane shape, and from the gradients; the direct kernels' from
     # their explicit calls at the train step's shape
+    lm_key = "{}x{}x{}/float32".format(*LM_SHAPE)
     cp_keys = ["16x4x2048/float32"] + [f"{G}x{R}x{D}/float32"
                                        for G, R, D in cp_kernel_shapes() if D == 2048]
     main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
@@ -1812,6 +2154,9 @@ def main() -> int:
                  "bind_superpose_direct":
                      errs["bind_superpose_direct"]["16x4x2048/float32"],
                  "unbind_direct": errs["unbind_direct"]["16x4x2048/float32"],
+                 # the LM training shape, against the float64 oracle
+                 "bind_superpose_fft4": errs["bind_superpose_fft4"][lm_key],
+                 "unbind_fft4": errs["unbind_fft4"][lm_key],
                  # the serving shape, in the dtype each serving run calls
                  "paged_attention": errs["paged_attention"]["main/float32"],
                  "paged_attention_quant":
@@ -1824,6 +2169,9 @@ def main() -> int:
                 "bind_superpose_direct":
                     main_run["route_launches"]["bind_superpose/direct"],
                 "unbind_direct": main_run["route_launches"]["unbind/direct"],
+                # the LM training run's
+                "bind_superpose_fft4": lm["route_launches"]["bind_superpose/fft4"],
+                "unbind_fft4": lm["route_launches"]["unbind/fft4"],
                 "paged_attention": rk["launches"]["paged_attention"],
                 "paged_attention_quant": rq["launches"]["paged_attention_quant"]}
     vgg = times["16x4x2048"]
@@ -1838,6 +2186,11 @@ def main() -> int:
                     "one_slot": {k: one[k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms", "splits",
                         "share_of_bound", "ms_host_included")}}
+        if kernel_route == "fft4":
+            t = fft4t[wrapper]
+            return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape", "plain_shape",
+                                      "direct_one_call_ms")}
         t = vgg[wrapper]
         return {"ms": t[f"{kernel_route}_ms"],
                 **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",
@@ -1866,7 +2219,8 @@ def main() -> int:
         "control_plane": {"parity": cp_par, "run": cp,
                           "masked_decode_bitwise": cp_bits, "table2": cp_t2,
                           "bnpp_resnet50": cp_bn},
-        "kernel_times": times,
+        "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
+        "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},
         indent=1))

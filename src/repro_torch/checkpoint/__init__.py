@@ -1,0 +1,4 @@
+"""Param-tree checkpoints (see ``ckpt``)."""
+from repro_torch.checkpoint.ckpt import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

@@ -25,8 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry points of each source: name -> argtypes (every one returns an
-# int: a cudaError_t, or a size).  Pointers and the stream go in as c_void_p.
+# int: a cudaError_t, or a size).  Sources include the shared headers
+# ``csrc/*.cuh``.  Pointers and the stream go in as c_void_p.
 SIGNATURES = {
     "circconv": {
         "circconv_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -35,6 +37,10 @@ SIGNATURES = {
     "circconv_fft": {
         "circconv_fft_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
         "circconv_fft_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "circconv_fft4": {   # x, kext, out, scratch, scratch bytes, G, R, D, dtype, stream
+        "circconv_fft4_bind_superpose": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+        "circconv_fft4_unbind": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
         "paged_attention_prepare": [_P, _I, _I, _I],
@@ -61,8 +67,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared headers
+    of ``csrc/`` (``*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -8,16 +8,22 @@ kernel entry points: both take the doubled keys Kext = [K || K] (R, 2D)::
     unbind_kernel(S (G, D), Kext)            -> Zhat (G, R, D)
         Zhat[g, i, d] = sum_j S[g, j] * K_i[(j - d) mod D]
 
-Each function has two CUDA kernels, and ``route(D)`` picks one by D alone:
+Each function has three CUDA kernels, and ``route(D)`` picks one by D
+alone:
 
 - ``"fft"`` (``csrc/circconv_fft.cu``) for every power of two
   ``FFT_MIN_D <= D <= FFT_MAX_D`` (4 to 16384): one pass in shared memory
   through a float32 FFT, the keys' spectra made in the kernel;
-- ``"direct"`` (``csrc/circconv.cu``) for every other D: the O(D^2) form
-  on tiles, which masks its ragged last tile and so takes any D.
+- ``"fft4"`` (``csrc/circconv_fft4.cu``) for every power of two
+  ``FFT_MAX_D < D <= FFT4_MAX_D`` (up to 2^22, the LM training path's
+  D = S * d_model): the four-step FFT in three launches through a complex
+  float32 scratch the wrapper allocates;
+- ``"direct"`` (``csrc/circconv.cu``) for every D that is not a power of
+  two: the O(D^2) form on tiles, which masks its ragged last tile.
 
-The choice is deterministic and is not a fallback: a build or launch
-failure of the chosen kernel raises, and nothing retries on the other.
+A power of two past ``FFT4_MAX_D`` has no route and raises.  The choice is
+deterministic and is not a fallback: a build or launch failure of the
+chosen kernel raises, and nothing retries on another.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the kernel's plain version beside it (``*_plain``, the direct O(D^2)
@@ -32,8 +38,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-ROUTES = ("fft", "direct")
+ROUTES = ("fft", "fft4", "direct")
 FFT_MIN_D, FFT_MAX_D = 4, 16384   # 16384: 224 KB of the 227 KB of shared memory
+FFT4_MAX_D = 1 << 22              # sub-transforms of 2048 points a block
 
 # kernel launches since the last reset_launch_counts(), by wrapper name, by
 # (wrapper name, route) and by (wrapper name, G, R, D)
@@ -45,8 +52,10 @@ SHAPE_LAUNCHES: Counter = Counter()
 _FN = {("bind_superpose", "direct"): "circconv_bind_superpose",
        ("unbind", "direct"): "circconv_unbind",
        ("bind_superpose", "fft"): "circconv_fft_bind_superpose",
-       ("unbind", "fft"): "circconv_fft_unbind"}
-_SOURCE = {"direct": "circconv", "fft": "circconv_fft"}
+       ("unbind", "fft"): "circconv_fft_unbind",
+       ("bind_superpose", "fft4"): "circconv_fft4_bind_superpose",
+       ("unbind", "fft4"): "circconv_fft4_unbind"}
+_SOURCE = {"direct": "circconv", "fft": "circconv_fft", "fft4": "circconv_fft4"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,15 +70,32 @@ def reset_launch_counts() -> None:
 
 def route(D: int) -> str:
     """The kernel the wrappers launch for rows of D points: ``"fft"`` for a
-    power of two in [FFT_MIN_D, FFT_MAX_D], ``"direct"`` for any other D.
+    power of two in [FFT_MIN_D, FFT_MAX_D], ``"fft4"`` for a power of two in
+    (FFT_MAX_D, FFT4_MAX_D], ``"direct"`` for any D that is not a power of
+    two.  A power of two past FFT4_MAX_D raises ``ValueError``.
 
-    The limits are what the FFT kernels accept, not where they turn faster:
-    they load a row as 4-point float4 chunks, so a row holds at least 4
-    points, and above 16384 its working set outgrows shared memory.  Below
-    about D = 256 the direct kernel is the faster (PERF.md)."""
+    The limits are what the kernels accept, not where they turn faster: the
+    one-pass FFT kernels load a row as 4-point float4 chunks, so a row holds
+    at least 4 points, and above 16384 its working set outgrows shared
+    memory; the four-step kernels' sub-transforms (at most 2048 points)
+    fit a block up to 2^22.  Below about D = 256 the direct kernel is the
+    faster (PERF.md)."""
     D = int(D)
-    return ("fft" if FFT_MIN_D <= D <= FFT_MAX_D and D & (D - 1) == 0
-            else "direct")
+    fft_route = _fft_route(D)
+    if fft_route is not None:
+        return fft_route
+    if D > FFT4_MAX_D and D & (D - 1) == 0:
+        raise ValueError(f"no circconv kernel takes a power of two D = {D} "
+                         f"past {FFT4_MAX_D} (the four-step kernels' limit)")
+    return "direct"
+
+
+def _fft_route(D: int) -> str | None:
+    """The FFT-form route that takes D (a power of two within its limits),
+    or None."""
+    if D & (D - 1) or not FFT_MIN_D <= D <= FFT4_MAX_D:
+        return None
+    return "fft" if D <= FFT_MAX_D else "fft4"
 
 
 def execution_mode(device="cuda") -> str:
@@ -128,9 +154,12 @@ def _launch(count_name: str, kernel_route: str, x, Kext, out, G, R, D):
     lib = build.load(_SOURCE[kernel_route])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(x.data_ptr(), Kext.data_ptr(),
-                                    out.data_ptr(), G, R, D,
-                                    _DTYPE_CODE[x.dtype], stream)
+        args = (x.data_ptr(), Kext.data_ptr(), out.data_ptr())
+        if kernel_route == "fft4":
+            scratch = torch.empty(fft4_scratch_floats(count_name, G, R, D),
+                                  dtype=torch.float32, device=x.device)
+            args += (scratch.data_ptr(), scratch.numel() * 4)
+        err = getattr(lib, fn_name)(*args, G, R, D, _DTYPE_CODE[x.dtype], stream)
     if err:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     LAUNCHES[count_name] += 1
@@ -139,12 +168,22 @@ def _launch(count_name: str, kernel_route: str, x, Kext, out, G, R, D):
     return out
 
 
+def fft4_scratch_floats(name: str, G: int, R: int, D: int) -> int:
+    """Float32 words of the four-step kernels' scratch: D complex points for
+    each row of pass A (the data rows and the R keys) and of pass B (the
+    output's rows).  ``name`` is "bind_superpose" or "unbind"."""
+    data, outs = (G * R, G) if name == "bind_superpose" else (G, G * R)
+    return (data + R + outs) * D * 2
+
+
 def _check_route(kernel_route: str, D: int):
     if kernel_route not in ROUTES:
         raise ValueError(f"unknown route {kernel_route!r}, not in {ROUTES}")
-    if kernel_route == "fft" and route(D) != "fft":
-        raise ValueError(f"the fft kernels take a power of two D in "
-                         f"[{FFT_MIN_D}, {FFT_MAX_D}], got D={D}")
+    if kernel_route != "direct" and _fft_route(D) != kernel_route:
+        limits = {"fft": f"[{FFT_MIN_D}, {FFT_MAX_D}]",
+                  "fft4": f"({FFT_MAX_D}, {FFT4_MAX_D}]"}[kernel_route]
+        raise ValueError(f"the {kernel_route} kernels take a power of two D "
+                         f"in {limits}, got D={D}")
 
 
 def bind_superpose_kernel(Z: torch.Tensor, Kext: torch.Tensor) -> torch.Tensor:

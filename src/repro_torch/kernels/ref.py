@@ -11,17 +11,34 @@ from __future__ import annotations
 import torch
 
 
-def _gather_contract(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor):
+# Past CHUNK_D points the contraction runs in chunks of output positions,
+# each gathering at most CHUNK_BYTES (the whole (D, D) gather would take
+# D^2 words a leading row: 34 GB of indices alone at D = 65536).  The chunks
+# compute the same sums; at D <= CHUNK_D nothing changes.
+CHUNK_D = 16384
+CHUNK_BYTES = 1 << 28
+
+
+def _gather_contract(a: torch.Tensor, b: torch.Tensor, sign: int):
+    """sum_j a[..., (sign * (d - j)) mod D] b[..., j] for every d."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    mat = a.to(dt)[..., idx]                           # (..., D, D)
-    return torch.einsum("...dj,...j->...d", mat, b.to(dt))
+    a, b = a.to(dt), b.to(dt)
+    D = b.shape[-1]
+    d = torch.arange(D, device=b.device)
+    if D <= CHUNK_D:
+        idx = (sign * (d[:, None] - d[None, :])) % D
+        return torch.einsum("...dj,...j->...d", a[..., idx], b)
+    lead = max(a[..., 0].numel(), b[..., 0].numel())
+    step = max(1, CHUNK_BYTES // (D * max(lead * a.element_size(), 8)))
+    return torch.cat([
+        torch.einsum("...dj,...j->...d",
+                     a[..., (sign * (d[d0:d0 + step, None] - d[None, :])) % D], b)
+        for d0 in range(0, D, step)], dim=-1)
 
 
 def circ_conv_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a (*) b)[d] = sum_j a[j] b[(d-j) mod D], last axis, exact."""
-    D = b.shape[-1]
-    d = torch.arange(D, device=b.device)
-    return _gather_contract(a, b, (d[:, None] - d[None, :]) % D)
+    return _gather_contract(a, b, 1)
 
 
 def circ_corr_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,9 +46,7 @@ def circ_corr_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Rewritten as sum_m a[(m-d) mod D] b[m] so the gather runs over `a`.
     """
-    D = b.shape[-1]
-    d = torch.arange(D, device=b.device)
-    return _gather_contract(a, b, (d[None, :] - d[:, None]) % D)
+    return _gather_contract(a, b, -1)
 
 
 def bind_superpose_ref(Z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Grouped-query attention (GQA, + bias, sliding window) for serving.
+"""Grouped-query attention (GQA, + bias, sliding window) for training and
+serving.
 
 Port of the GQA part of ``repro/models/attention.py``; params are plain
 dicts with the reference's keys.  Shapes: x (B, S, D); q heads H, kv heads
@@ -24,12 +25,20 @@ Cache writes happen IN PLACE (the reference returns new caches): decode
 and prefill return the cache dict they were given, with its leaves
 updated.  ``live`` (B,) bool makes rows marked False write NOTHING.
 
-MLA, cross-attention and the training-time causal SDPA are not ported
-yet: they come with ROADMAP.md slice 4 (the LM training path).
+Training and prefill without a cache: ``apply_gqa`` over a causal mask,
+q-chunked past ``CHUNK_THRESHOLD`` with each chunk recomputed in the
+backward (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+per chunk.  The reference computes this attention in plain jnp with no
+Pallas kernel, so the port runs the same plain matmul and softmax as the
+serving path's ``_sdpa``.
+
+MLA and cross-attention are not ported yet: they come with ROADMAP.md
+slice 4, part 2.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
@@ -98,6 +107,57 @@ def _sdpa(q, k, v, mask):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(B, Sq, H * hd_v)
+
+
+def causal_mask(Sq: int, Sk: int, window: int | None = None, q0: int = 0,
+                k0: int = 0, device=None):
+    """(1, 1, Sq, Sk) boolean for a (q, k) tile at absolute offsets (q0, k0)."""
+    qpos = q0 + torch.arange(Sq, device=device)[:, None]
+    kpos = k0 + torch.arange(Sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+# Above this sequence length, attention runs q-chunked with per-chunk
+# recomputation, so the live score tensor is (B, H, q_chunk, kv_len) instead
+# of (B, H, S, S).
+CHUNK_THRESHOLD = 2048
+Q_CHUNK = 1024
+
+
+def _sdpa_causal(q, k, v, window: int | None = None, q_chunk: int = Q_CHUNK):
+    """Causal SDPA, q-chunked above CHUNK_THRESHOLD.  Static chunk bounds:
+    chunk i attends kv[max(0, i*qc - window + 1) : (i+1)*qc), its start
+    aligned down to the chunk grid."""
+    S = q.shape[1]
+    if S <= CHUNK_THRESHOLD:
+        return _sdpa(q, k, v, causal_mask(S, S, window, device=q.device))
+    qc = min(q_chunk, S)
+    while S % qc:
+        qc -= 1
+    outs = []
+    for i in range(S // qc):
+        q0 = i * qc
+        kv_end = q0 + qc
+        kv_start = 0 if window is None else max(0, q0 - window + 1)
+        kv_start -= kv_start % qc
+        mask = causal_mask(qc, kv_end - kv_start, window, q0=q0, k0=kv_start,
+                           device=q.device)
+        outs.append(checkpoint(_sdpa, q[:, q0:kv_end], k[:, kv_start:kv_end],
+                               v[:, kv_start:kv_end], mask, use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
+def apply_gqa(p, x, positions, *, num_heads, num_kv_heads, head_dim,
+              rotary_dim, rope_theta=10000.0, sliding_window=None):
+    """Training-time GQA over the whole sequence: x (B,S,D), positions
+    (B,S) -> (B,S,D)."""
+    q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
+    q = apply_rope(q, positions, rotary_dim, rope_theta)
+    k = apply_rope(k, positions, rotary_dim, rope_theta)
+    return _sdpa_causal(q, k, v, sliding_window) @ p["w_o"]
 
 
 def init_gqa_cache(batch: int, length: int, num_kv_heads: int, head_dim: int,

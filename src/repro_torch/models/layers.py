@@ -2,8 +2,8 @@
 
 Port of ``repro/models/layers.py``: the initializers take a
 ``torch.Generator`` (the draws land on the generator's device, so a
-generator on the card makes the weights there), and the norms and RoPE
-compute in float32 as the reference does.
+generator on the card makes the weights there), and the norms, RoPE and the
+cross-entropy compute in float32 as the reference does.
 """
 from __future__ import annotations
 
@@ -100,3 +100,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_dim: int,
     if x_pass.shape[-1]:
         return torch.cat([out.to(dt), x_pass], dim=-1)
     return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits (..., V), labels (...) int: mean CE over unmasked positions.
+
+    The reference picks the label's logit with a one-hot einsum (it
+    partitions under a vocab-sharded head); a gather computes the same
+    value without the (tokens, V) one-hot, 0.84 GB at deepseek-7b's
+    vocabulary and 2,048 tokens.
+    """
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted.float()), dim=-1))
+    picked = torch.gather(shifted, -1, labels.long()[..., None])[..., 0].float()
+    ll = picked - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,24 +1,28 @@
-"""The causal LM's serving entry points: params, decode cache, decode step,
-chunked prefill.
+"""The causal LM: params, the training forward and loss, and the serving
+entry points (decode cache, decode step, chunked prefill).
 
-Port of the serving half of ``repro/models/lm.py`` for decoder-only models
-built of ``attn`` and ``mlp`` sublayers (e.g. ``deepseek-7b``).  Params
-and caches keep the reference's trees (stacked leaves with a leading
-superblock axis, dense weights ``(d_in, d_out)`` applied as ``x @ w``), so
-reference trees carry across one to one through ``repro_torch.interop``.
+Port of ``repro/models/lm.py`` for decoder-only models built of ``attn``
+and ``mlp`` sublayers (e.g. ``deepseek-7b``).  Params and caches keep the
+reference's trees (stacked leaves with a leading superblock axis, dense
+weights ``(d_in, d_out)`` applied as ``x @ w``), so reference trees carry
+across one to one through ``repro_torch.interop``.
 
 C3-SL integration: with a codec, the stack is split at the superblock
-midpoint (``n_cut = num_superblocks // 2``) and the cut-layer features are
-compressed batch-wise across the decode batch (decode), or per position
-across slots (chunked prefill), exactly as the reference.
+midpoint (``n_cut = num_superblocks // 2``).  In training the cut
+activation (B, S, d) is flattened to (B, S*d) per-sample features and
+round-tripped through the codec (``transport.link.roundtrip``): batch-wise
+grouping over B with D = S*d_model, the paper's Algorithm 1.  In serving
+the cut-layer features are compressed batch-wise across the decode batch
+(decode), or per position across slots (chunked prefill), exactly as the
+reference.
 
 Caches are written IN PLACE: ``decode_step`` and ``prefill_chunk`` return
 the cache dict they were given.  Entry points run on the card unless the
 caller passes ``device="cpu"`` (or CPU tensors).
 
-Not ported yet: the training forward and loss, encoder-decoder models,
-modality frontends and ``first_dense_layers`` (ROADMAP.md slice 4, the LM
-training path), and speculative ``verify_chunk`` (slice 5, serving II).
+Not ported yet: encoder-decoder models, modality frontends and
+``first_dense_layers`` (ROADMAP.md slice 4, part 2), and speculative
+``verify_chunk`` (slice 5, serving II).
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ import torch
 
 from repro_torch.codecs.c3sl import sequence_group_decode, sequence_group_encode
 from repro_torch.configs.base import ModelConfig
+from repro_torch.interop import tree_map
 from repro_torch.models import stack as stack_lib
-from repro_torch.models.layers import dense_init, embed_init
+from repro_torch.models.layers import dense_init, embed_init, softmax_cross_entropy
 from repro_torch.models.stack import _apply_norm, _init_norm
+from repro_torch.transport.link import roundtrip
 
 
 def check_supported(cfg: ModelConfig):
@@ -41,7 +47,7 @@ def check_supported(cfg: ModelConfig):
         if on:
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet: they come with "
-                f"ROADMAP.md slice 4 (the LM training path)")
+                f"ROADMAP.md slice 4, part 2")
     for layer in cfg.block_pattern:
         for kind in layer:
             stack_lib._check_kind(kind)
@@ -67,6 +73,95 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         "head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype),
     }
     return p
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Token embedding.  Returns (h (B,S,d), positions (B,S))."""
+    h = params["embed"][batch["tokens"].long()]
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    return h, positions
+
+
+def _split_stacked(stacked, n_front: int):
+    """(superblocks [0, n_front), the rest) of a stacked tree, as views."""
+    front = tree_map(lambda a: a[:n_front], stacked)
+    back = tree_map(lambda a: a[n_front:], stacked)
+    return front, back
+
+
+def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
+               codec_params=None, sliding_window=None, remat=True,
+               last_only=False, with_metrics=False, bwd_probe=None,
+               erasure=None):
+    """Returns (logits (B,S,V), aux_loss), or (logits, aux_loss, metrics)
+    with ``with_metrics=True``, where metrics carries ``cut_snr`` (the
+    retrieval SNR in dB at the cut layer, the Adaptive-R controller's
+    signal; absent without a codec).  ``last_only=True`` slices the final
+    position before the head matmul.
+
+    ``codec`` may be a static codec or a static ``SplitLink``; for an
+    asymmetric link, ``bwd_probe`` is the gradient-SNR tap (a 0-dim
+    float32 tensor with ``requires_grad``: its gradient is the measured
+    gradient-retrieval SNR in dB).  ``erasure`` (``{"fwd": keep[, "bwd":
+    keep]}``, masks on the payload's device) injects cut-payload loss.
+    See ``repro_torch.transport.link.roundtrip``."""
+    check_supported(cfg)
+    if sliding_window is None:
+        sliding_window = cfg.sliding_window
+    h, positions = _embed_inputs(params, cfg, batch)
+
+    def run(stacked, h):
+        return stack_lib.apply_stack(stacked, cfg, h, positions,
+                                     sliding_window=sliding_window, remat=remat)
+
+    metrics = {}
+    if codec is None:
+        h, aux = run(params["stack"], h)
+    else:
+        front, back = _split_stacked(params["stack"], cfg.num_superblocks // 2)
+        h, a1 = run(front, h)
+        B, S, d = h.shape
+        Zf = h.reshape(B, S * d)
+        if with_metrics:
+            Zhat, snr = roundtrip(codec, codec_params, Zf, with_snr=True,
+                                  bwd_probe=bwd_probe, erasure=erasure)
+            metrics["cut_snr"] = snr
+        else:
+            Zhat = roundtrip(codec, codec_params, Zf, bwd_probe=bwd_probe,
+                             erasure=erasure)
+        h, a2 = run(back, Zhat.reshape(B, S, d))
+        aux = a1 + a2
+    if last_only:
+        h = h[:, -1:, :]
+    h = _apply_norm(cfg, params["final_norm"], h)
+    logits = h @ params["head"]
+    if with_metrics:
+        return logits, aux, metrics
+    return logits, aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, codec=None, codec_params=None,
+            sliding_window=None, remat=True, with_metrics=False,
+            bwd_probe=None, erasure=None):
+    """Mean next-token CE (+ the aux loss, 0 for the ported kinds); labels
+    == -1 are masked.  ``with_metrics=True`` returns (loss, metrics) with
+    the cut-layer ``cut_snr`` (see :func:`lm_forward`)."""
+    out = lm_forward(params, batch, cfg, codec=codec, codec_params=codec_params,
+                     sliding_window=sliding_window, remat=remat,
+                     with_metrics=with_metrics, bwd_probe=bwd_probe,
+                     erasure=erasure)
+    logits, aux = out[0], out[1]
+    labels = batch["labels"]
+    ce = softmax_cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
+    loss = ce + cfg.aux_loss_weight * aux
+    if with_metrics:
+        return loss, out[2]
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Superblock layer-stack engine for serving (the ``attn`` and ``mlp`` kinds).
+"""Superblock layer-stack engine (the ``attn`` and ``mlp`` kinds).
 
-Port of the init, cache and serving parts of ``repro/models/stack.py``.
+Port of ``repro/models/stack.py`` for the training forward and for serving.
 The layer stack is ``num_superblocks`` repetitions of
 ``cfg.block_pattern``; one superblock's params are a flat dict keyed
 "l{layer}_{idx}_{kind}", and the stack keeps every leaf stacked with a
@@ -9,17 +9,20 @@ across one to one.  Every sublayer is pre-norm residual: h = h + f(norm(h)).
 
 The reference's ``lax.scan`` over superblocks becomes a Python loop over
 the views ``leaf[i]`` of the stacked leaves; cache writes into those views
-land in place in the stacked pools.
+land in place in the stacked pools.  In training, ``remat=True`` (the
+reference's ``jax.checkpoint`` of the scan body) recomputes each
+superblock in the backward through ``torch.utils.checkpoint``: it changes
+memory, not numbers.
 
-Other sublayer kinds (mla, moe, mamba, rwkv_tm, rwkv_cm, cross) and the
-training-time ``apply_stack`` come with ROADMAP.md slice 4 (the LM
-training path) and raise ``NotImplementedError`` here.
+Other sublayer kinds (mla, moe, mamba, rwkv_tm, rwkv_cm, cross) come with
+ROADMAP.md slice 4, part 2, and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -32,7 +35,7 @@ def _check_kind(kind: str):
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"sublayer kind {kind!r} is not ported yet: it comes with "
-            f"ROADMAP.md slice 4 (the LM training path); the port serves "
+            f"ROADMAP.md slice 4, part 2; the port trains and serves "
             f"{PORTED_KINDS}")
 
 
@@ -136,6 +139,70 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree) -> list:
+    """The superblocks of a stacked tree, as views (``unbind`` of every
+    leaf: its backward stacks the superblocks' gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+# ---------------------------------------------------------------------------
+# apply (train / prefill without a cache)
+# ---------------------------------------------------------------------------
+
+def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
+                   sliding_window=None):
+    """Returns (residual_update, aux_loss); the ported kinds have no
+    auxiliary loss (0.0)."""
+    _check_kind(kind)
+    x = _apply_norm(cfg, p["norm"], h)
+    if kind == "attn":
+        y = attn_lib.apply_gqa(p, x, positions, num_heads=cfg.num_heads,
+                               num_kv_heads=cfg.num_kv_heads,
+                               head_dim=cfg.head_dim_,
+                               rotary_dim=cfg.rotary_dim,
+                               rope_theta=cfg.rope_theta,
+                               sliding_window=sliding_window)
+    else:
+        y = apply_mlp(p, x)
+    return y, 0.0
+
+
+def apply_superblock(p_sb, cfg: ModelConfig, h, positions, *, pattern=None,
+                     sliding_window=None):
+    pattern = pattern or cfg.block_pattern
+    aux_total = 0.0
+    for li, layer in enumerate(pattern):
+        for si, kind in enumerate(layer):
+            y, aux = apply_sublayer(kind, p_sb[f"l{li}_{si}_{kind}"], cfg, h,
+                                    positions, sliding_window=sliding_window)
+            h = h + y
+            aux_total = aux_total + aux
+    return h, aux_total
+
+
+def apply_stack(stacked, cfg: ModelConfig, h, positions, *,
+                sliding_window=None, remat: bool = True):
+    """Every superblock of ``stacked`` (leading axis: superblocks) in order.
+    Returns (h, total_aux_loss).  ``remat`` recomputes each superblock in
+    the backward instead of keeping its activations."""
+    def body(p_sb, h):
+        return apply_superblock(p_sb, cfg, h, positions,
+                                sliding_window=sliding_window)
+
+    aux = 0.0
+    for p_sb in _unstack(stacked):
+        if remat and torch.is_grad_enabled():
+            h, a = checkpoint(body, p_sb, h, use_reentrant=False)
+        else:
+            h, a = body(p_sb, h)
+        aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,13 @@ opt.init(params); updates, state = opt.update(grads, state, params);
 params = apply_updates(params, updates).  States have the params' tree
 structure with float32 leaves; the step count is a 0-d int32 tensor on the
 params' device, so an update needs no host sync.
+
+Adam and AdamW also offer ``opt.update_(grads, state, params)``: the same
+update and ``apply_updates`` in place on ``state`` and ``params``, with the
+same numbers.  The functional form keeps the old moments and params beside
+the new ones until the caller drops them (eight copies of the params at
+the peak, with the gradients and the updates); in place, four.  The LM
+trainer uses it, with ``clip_by_global_norm_``, at full width.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from repro_torch.interop import tree_leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+    update_: Callable | None = None     # in place, where the optimizer has one
 
 
 def _f32(x):
@@ -36,10 +44,25 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_scale(gn, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     gn = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    scale = _clip_scale(gn, max_norm)
     return tree_map(lambda x: x * scale, tree), gn
+
+
+@torch.no_grad()
+def clip_by_global_norm_(tree, max_norm: float):
+    """:func:`clip_by_global_norm` in place on ``tree``'s leaves; returns
+    the global norm before clipping."""
+    gn = global_norm(tree)
+    scale = _clip_scale(gn, max_norm)
+    for x in tree_leaves(tree):
+        x.mul_(scale)
+    return gn
 
 
 def _count0(params):
@@ -54,29 +77,57 @@ def _adam_core(lr, b1, b2, eps, weight_decay):
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": _count0(params)}
 
-    def update(grads, state, params=None):
-        count = state["count"] + 1
+    def corrections(count):
         lr_t = lr(count) if callable(lr) else lr
-        m = tree_map(lambda m, g: b1 * m + (1 - b1) * _f32(g), state["m"], grads)
-        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(_f32(g)),
-                     state["v"], grads)
         cf = count.float()
         c1 = 1 - torch.pow(torch.tensor(b1, device=cf.device), cf)
         c2 = 1 - torch.pow(torch.tensor(b2, device=cf.device), cf)
+        return lr_t, c1, c2
 
-        def upd(m, v, p):
-            u = -lr_t * (m / c1) / (torch.sqrt(v / c2) + eps)
-            if weight_decay and p is not None:
-                u = u - lr_t * weight_decay * _f32(p)
-            return u
+    def upd(m, v, p, lr_t, c1, c2):
+        u = -lr_t * (m / c1) / (torch.sqrt(v / c2) + eps)
+        if weight_decay and p is not None:
+            u = u - lr_t * weight_decay * _f32(p)
+        return u
 
+    def moments_(m, v, g):
+        """One leaf's moment step, in place on ``m`` and ``v``."""
+        g = _f32(g)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+
+    def update(grads, state, params=None):
+        count = state["count"] + 1
+        m = tree_map(torch.clone, state["m"])
+        v = tree_map(torch.clone, state["v"])
+        for mi, vi, g in zip(tree_leaves(m), tree_leaves(v), tree_leaves(grads)):
+            moments_(mi, vi, g)
+        lr_t, c1, c2 = corrections(count)
         if weight_decay:
-            updates = tree_map(upd, m, v, params)
+            updates = tree_map(lambda m, v, p: upd(m, v, p, lr_t, c1, c2),
+                               m, v, params)
         else:
-            updates = tree_map(lambda m, v: upd(m, v, None), m, v)
+            updates = tree_map(lambda m, v: upd(m, v, None, lr_t, c1, c2), m, v)
         return updates, {"m": m, "v": v, "count": count}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state, params):
+        """``update`` then ``apply_updates``, in place on ``state`` and
+        ``params``, leaf by leaf, in the same operations."""
+        state["count"] = state["count"] + 1
+        lr_t, c1, c2 = corrections(state["count"])
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            moments_(m, v, g)
+            if p.is_complex():
+                continue   # frozen constants take no updates
+            u = upd(m, v, p, lr_t, c1, c2)
+            if p.dtype == torch.float32:
+                p.add_(u)
+            else:
+                p.copy_((p.float() + u).to(p.dtype))
+
+    return Optimizer(init, update, update_)
 
 
 def adam(lr, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:

@@ -166,13 +166,72 @@ def test_execution_mode_follows_the_device():
     (1, "direct"), (2, "direct"), (3, "direct"), (4, "fft"), (8, "fft"),
     (32, "fft"), (64, "fft"), (96, "direct"), (127, "direct"), (2048, "fft"),
     (4096, "fft"), (4097, "direct"), (5120, "direct"), (12288, "direct"),
-    (16384, "fft"), (32768, "direct")])
+    (16384, "fft"), (32768, "fft4"), (20480, "direct"), (65536, "fft4"),
+    (524288, "fft4"), (655360, "direct"), (1 << 22, "fft4"),
+    ((1 << 22) + 1, "direct")])
 def test_route_picks_fft_for_powers_of_two_up_to_the_limit(D, want):
-    """The FFT kernels take every power of two in [4, 16384]; every other D
-    (ragged, the LM widths 5120 and 12288, past shared memory) goes to the
-    direct kernels.  By D alone."""
+    """The one-pass FFT kernels take every power of two in [4, 16384], the
+    four-step kernels every power of two past it up to 2^22 (the LM
+    training path's D = S * d_model, 524288 at S 128 and d_model 4096);
+    every D that is not a power of two (ragged, the LM widths 5120 and
+    12288, 128 * 5120 past shared memory) goes to the direct kernels.  By
+    D alone."""
     assert circconv.route(D) == want
-    assert (circconv.FFT_MIN_D, circconv.FFT_MAX_D) == (4, 16384)
+    assert (circconv.FFT_MIN_D, circconv.FFT_MAX_D, circconv.FFT4_MAX_D) == \
+        (4, 16384, 1 << 22)
+
+
+@pytest.mark.parametrize("D", [1 << 23, 1 << 24])
+def test_route_raises_for_a_power_of_two_past_the_four_step_limit(D):
+    """No kernel takes it, and nothing falls back to another route."""
+    with pytest.raises(ValueError, match="four-step kernels' limit"):
+        circconv.route(D)
+    with pytest.raises(ValueError, match="four-step kernels' limit"):
+        circconv.bind_superpose_kernel(torch.zeros(1, 1, D), torch.zeros(1, 2 * D))
+
+
+@pytest.mark.parametrize("name,G,R,D,want", [
+    ("bind_superpose", 4, 4, 524288, (16 + 4 + 4) * 524288 * 2),
+    ("unbind", 4, 4, 524288, (4 + 4 + 16) * 524288 * 2),
+    ("bind_superpose", 1, 3, 32768, (3 + 3 + 1) * 32768 * 2)])
+def test_fft4_scratch_holds_every_pass_row(name, G, R, D, want):
+    """The four-step kernels' scratch: D complex points for each data row
+    and key of pass A and each output row of pass B (float32 words)."""
+    assert circconv.fft4_scratch_floats(name, G, R, D) == want
+
+
+@pytest.mark.parametrize("D", [64, 16384, 20480, 1 << 23])
+def test_fft4_route_refuses_what_its_kernels_do_not_take(D):
+    with pytest.raises(ValueError, match="fft4 kernels take a power of two"):
+        circconv._bind_superpose_on("fft4", torch.zeros(1, 1, D), torch.zeros(1, 2 * D))
+
+
+def test_fft4_route_runs_the_plain_version_on_cpu():
+    """On CPU tensors the four-step route is the plain contraction (its
+    gather in chunks past 16384 points); nothing counts a launch."""
+    Z, K = _data(1, 1, 32768, seed=4)
+    Zt, kext = torch.from_numpy(Z), ops._kext(torch.from_numpy(K))
+    before = dict(circconv.ROUTE_LAUNCHES)
+    S = circconv._bind_superpose_on("fft4", Zt, kext)
+    want = np.fft.irfft(np.fft.rfft(Z[0, 0].astype(np.float64))
+                        * np.fft.rfft(K[0].astype(np.float64)), n=32768)
+    np.testing.assert_allclose(S[0].numpy(), want, rtol=1e-5, atol=1e-5)
+    assert circconv.ROUTE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("sign_fn", ["circ_conv_ref", "circ_corr_ref"])
+def test_chunked_plain_contraction_sums_the_same_terms(monkeypatch, sign_fn):
+    """Past CHUNK_D the plain contraction gathers a chunk of output
+    positions at a time; with the threshold lowered it agrees with the
+    one-shot gather to float64 rounding (1e-12)."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.normal(size=(3, 96)))
+    b = torch.from_numpy(rng.normal(size=(2, 3, 96)))
+    whole = getattr(tref, sign_fn)(a, b)
+    monkeypatch.setattr(tref, "CHUNK_D", 16)
+    monkeypatch.setattr(tref, "CHUNK_BYTES", 3 * 96 * 8 * 5)    # 5 rows a chunk
+    np.testing.assert_allclose(getattr(tref, sign_fn)(a, b).numpy(), whole.numpy(),
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("kernel_route", ["fft", "direct"])
@@ -203,6 +262,7 @@ def test_reset_clears_route_counts():
     circconv.LAUNCHES["unbind"] += 3
     circconv.reset_launch_counts()
     assert set(circconv.ROUTE_LAUNCHES) == {
-        (k, r) for k in ("bind_superpose", "unbind") for r in ("fft", "direct")}
+        (k, r) for k in ("bind_superpose", "unbind")
+        for r in ("fft", "fft4", "direct")}
     assert not any(circconv.ROUTE_LAUNCHES.values())
     assert not any(circconv.LAUNCHES.values())

@@ -62,6 +62,45 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert int(n) >= 16 and bad.strip() == "[]", out.stdout
 
 
+# a meta-path hook that makes jax and the JAX package unimportable
+_BLOCK = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def _run_blocked(code):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", _BLOCK + code],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.train", "repro_torch.checkpoint",
+    "repro_torch.models.lm", "repro_torch.data.pipeline",
+    "repro_torch.optim"])
+def test_training_modules_import_with_jax_absent(module):
+    out = _run_blocked(f"import {module}\nprint('ok')\n")
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_training_cli_runs_with_jax_absent(tmp_path):
+    """One reduced train step on the CPU, with a checkpoint, and jax and
+    the JAX package unimportable."""
+    out = _run_blocked(
+        "from repro_torch.launch import train\n"
+        "train.main(['--reduced', '--steps', '1', '--seq', '8', '--batch', "
+        "'4', '--device', 'cpu', '--codec', 'c3sl:R=2', '--ckpt-dir', "
+        f"{str(tmp_path)!r}])\n")
+    assert out.returncode == 0, out.stderr
+    assert "boundary traffic" in out.stdout and "final loss" in out.stdout
+    assert (tmp_path / "step_00000001" / "arrays.npz").exists()
+
+
 def test_chip_smoke_fails_without_a_gpu():
     """Where torch.cuda.is_available() is false the script exits non-zero
     and prints no result line."""

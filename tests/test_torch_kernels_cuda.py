@@ -27,6 +27,11 @@ SHAPES = [(1, 1, 64), (3, 5, 96), (16, 16, 128), (16, 4, 2048), (4, 3, 127),
 FFT_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
               (2, 16, 4096), (1, 4, 4096), (2, 4, 4096), (128, 4, 4096),
               (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384)]
+# the four-step kernels against the plain version past shared memory (its
+# gather runs in chunks there), and at the LM training shape (G = B/R = 4,
+# R 4, D = 128 * 4096) against a float64 torch.fft oracle
+FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536)]
+FFT4_ORACLE_SHAPES = [(4, 4, 524288)]
 
 
 @pytest.fixture
@@ -102,6 +107,58 @@ def test_fft_kernels_match_plain_on_card(dev, G, R, D, dtype):
     assert S.dtype == dtype and S.shape == (G, D) and Zh.shape == (G, R, D)
 
 
+def _oracle(name, x, K):
+    """bind or unbind in float64 through torch.fft (a check only)."""
+    X, Kf = torch.fft.fft(x.double(), dim=-1), torch.fft.fft(K.double(), dim=-1)
+    if name == "bind":
+        return torch.fft.ifft((X * Kf).sum(-2), dim=-1).real
+    return torch.fft.ifft(X[:, None, :] * Kf.conj(), dim=-1).real
+
+
+@pytest.mark.parametrize("G,R,D", FFT4_SHAPES + FFT4_ORACLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fft4_kernels_match_plain_on_card(dev, G, R, D, dtype):
+    assert circconv.route(D) == "fft4"
+    Z, K = _data(G, R, D, dev, seed=8)
+    kext = ops._kext(K)
+    Z = Z.to(dtype)
+    S = _routed("bind", "fft4", Z, kext)
+    oracle = (G, R, D) in FFT4_ORACLE_SHAPES
+    _close(S, _oracle("bind", Z, K) if oracle
+           else circconv.bind_superpose_plain(Z.double(), kext.double()), dtype)
+    Zh = _routed("unbind", "fft4", S, kext)
+    _close(Zh, _oracle("unbind", S, K) if oracle
+           else circconv.unbind_plain(S.double(), kext.double()), dtype)
+    torch.cuda.synchronize()
+    assert S.dtype == dtype and S.shape == (G, D) and Zh.shape == (G, R, D)
+
+
+def test_fft4_kernels_are_bitwise_repeatable_and_adjoint(dev):
+    """Two runs equal bit for bit (no atomics), and <bind(Z), S> = <Z,
+    unbind(S)> to float32 rounding (each kernel's backward is the other)."""
+    G, R, D = 4, 4, 524288
+    Z, K = _data(G, R, D, dev, seed=9)
+    kext = ops._kext(K)
+    S = torch.randn(G, D, device=dev)
+    b, u = circconv.bind_superpose_kernel(Z, kext), circconv.unbind_kernel(S, kext)
+    assert torch.equal(circconv.bind_superpose_kernel(Z, kext), b)
+    assert torch.equal(circconv.unbind_kernel(S, kext), u)
+    lhs, rhs = (b.double() * S.double()).sum(), (Z.double() * u.double()).sum()
+    assert abs(float(lhs - rhs)) <= 1e-5 * float(b.double().norm() * S.double().norm())
+
+
+@pytest.mark.parametrize("G,R,D", [(1, 1, 20480)])
+def test_direct_kernels_past_shared_memory(dev, G, R, D):
+    """A D past 16384 that is not a power of two stays on the direct route."""
+    assert circconv.route(D) == "direct"
+    Z, K = _data(G, R, D, dev, seed=10)
+    kext = ops._kext(K)
+    S = _routed("bind", "direct", Z, kext)
+    _close(S, circconv.bind_superpose_plain(Z.double(), kext.double()), torch.float32)
+    Zh = _routed("unbind", "direct", S, kext)
+    _close(Zh, circconv.unbind_plain(S.double(), kext.double()), torch.float32)
+
+
 @pytest.mark.parametrize("G,R,D", [(16, 4, 2048), (16, 4, 4096)])
 def test_direct_kernels_at_main_path_shapes(dev, G, R, D):
     Z, K = _data(G, R, D, dev, seed=4)
@@ -173,8 +230,34 @@ def test_pallas_codec_makes_no_torch_fft_call(dev, monkeypatch):
     assert bool(torch.isfinite(gz).all())
     assert circconv.ROUTE_LAUNCHES == {("bind_superpose", "fft"): 2,
                                        ("unbind", "fft"): 2,
+                                       ("bind_superpose", "fft4"): 0,
+                                       ("unbind", "fft4"): 0,
                                        ("bind_superpose", "direct"): 0,
                                        ("unbind", "direct"): 0}
+
+
+def test_pallas_codec_at_the_lm_width_makes_no_torch_fft_call(dev, monkeypatch):
+    """At the LM training path's D = 128 * 4096 the backend=pallas codec
+    runs the four-step kernels, forward and backward, with torch.fft's
+    transforms patched to raise."""
+    from repro_torch import codecs
+    codec = codecs.build("c3sl:R=4,backend=pallas", D=524288)
+    params = codec.init(device=dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.fft called on the backend=pallas path")
+
+    for fn in ("fft", "ifft", "rfft", "irfft"):
+        monkeypatch.setattr(torch.fft, fn, refuse)
+    circconv.reset_launch_counts()
+    Z = torch.randn(16, 524288, device=dev, requires_grad=True)
+    Zhat = codec.decode(params, codec.encode(params, Z))
+    (gz,) = torch.autograd.grad((Zhat * Zhat).sum(), [Z])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(gz).all())
+    assert circconv.ROUTE_LAUNCHES[("bind_superpose", "fft4")] == 2
+    assert circconv.ROUTE_LAUNCHES[("unbind", "fft4")] == 2
+    assert sum(circconv.ROUTE_LAUNCHES.values()) == 4
 
 
 def test_autograd_functions_on_card(dev):

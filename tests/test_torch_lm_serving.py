@@ -39,15 +39,21 @@ OVERRIDES = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=128,
                  num_heads=4, num_kv_heads=2, head_dim=32)
 
 
+# the other dense archs the port serves, as variants of their own: qkv
+# bias; qkv bias with partial rotary 0.5; GQA with rope theta 1e6
+DENSE_ARCHS = ("qwen2.5-32b", "chatglm3-6b", "mistral-large-123b")
+
+
 def _cfgs(variant, **more):
     """(reference config, port config) of one variant."""
     over = dict(OVERRIDES, **more)
+    arch = variant if variant in DENSE_ARCHS else "deepseek-7b"
     if variant == "swa":
         over["sliding_window"] = 8
     elif variant == "int8":
         over["kv_cache_quant"] = True
-    j = jconfigs.reduced(jconfigs.get_config("deepseek-7b"), **over)
-    t = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), **over)
+    j = jconfigs.reduced(jconfigs.get_config(arch), **over)
+    t = tconfigs.reduced(tconfigs.get_config(arch), **over)
     return j, t
 
 
@@ -57,8 +63,15 @@ def _np_tree(tree):
 
 @functools.lru_cache(maxsize=None)
 def _params(variant):
+    """Reference params (qkv biases, where the arch has them, set to
+    nonzero numpy draws so that they count) and the port's copy."""
     jcfg, tcfg = _cfgs(variant)
     pj = jlm.init_lm_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(4)
+    pj = jax.tree_util.tree_map_with_path(
+        lambda k, v: jnp.asarray(0.1 * rng.normal(size=v.shape), v.dtype)
+        if jax.tree_util.keystr(k).endswith(("'b_q']", "'b_k']", "'b_v']")) else v,
+        pj)
     return jcfg, tcfg, pj, params_from_numpy(_np_tree(pj), device="cpu")
 
 
@@ -283,7 +296,11 @@ def _assert_logits(got, want, rows, what):
     ("plain", "contiguous", None), ("plain", "paged", None),
     ("plain", "contiguous", "c3sl:R=2"), ("plain", "paged", "c3sl:R=2"),
     ("swa", "paged", "c3sl:R=2"), ("swa", "contiguous", None),
-    ("int8", "paged", "c3sl:R=2"), ("int8", "contiguous", None)])
+    ("int8", "paged", "c3sl:R=2"), ("int8", "contiguous", None),
+    ("qwen2.5-32b", "paged", "c3sl:R=2"), ("qwen2.5-32b", "contiguous", None),
+    ("chatglm3-6b", "paged", "c3sl:R=2"), ("chatglm3-6b", "contiguous", None),
+    ("mistral-large-123b", "paged", "c3sl:R=2"),
+    ("mistral-large-123b", "contiguous", None)])
 def test_prefill_and_decode_steps_match_reference(variant, layout, codec):
     jcfg, tcfg, pj, pt = _params(variant)
     B, T, ps, C = 4, 32, 8, 8
