@@ -14,22 +14,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    bfloat16, which the kernels round once on output, to 1e-2 of the
    compared values' max|want| and 5e-3 in relative L2.
    - bind and unbind in float32 and bfloat16, through the kernel that
-     ``circconv.route(D)`` picks (the one-pass FFT-form kernels for a power
-     of two D in [4, 16384], the four-step ones for a power of two past it
-     up to 2^22, the direct ones for every other D; each call's route is
-     checked on ``ROUTE_LAUNCHES``): the reference's test shapes, the
-     main-path shapes, ragged D, and the FFT kernels' edges (R 1, 5, 8, 9,
-     16; G 1, 2, 128; D 4 to 32, the route's upper limit 16384, and 20480,
-     which goes direct), every (G, R) the control plane's (R_fwd, R_bwd)
-     programs launch (phase 5) at D 2048 and 4096, and the four-step
-     kernels at (1, 1, 32768) and (2, 4, 65536) and at the LM training
-     shape (4, 4, 524288), there against a float64 torch.fft oracle made in
-     the phase (the O(D^2) plain version would gather terabytes), with the
-     adjoint identity <bind(Z), S> = <Z, unbind(S)> to float32 rounding;
-     the direct kernels called explicitly at the main-path shapes; two runs
-     of each FFT and four-step kernel bitwise equal; the autograd
-     Functions' gradients against autograd of the plain version (1e-4);
-     zero key gradient;
+     ``circconv.route(D)`` picks (the one-pass FFT-form kernels for every D
+     = 2^a 3^b 5^c with a >= 2 in [4, 16384], mixed radix where D is not a
+     power of two; the four-step ones for such a D past it up to 2^22; the
+     direct ones for every other D; each call's route is checked on
+     ``ROUTE_LAUNCHES``): the reference's test shapes, the main-path shapes,
+     ragged D, and the FFT kernels' edges (R 1, 5, 8, 9, 16; G 1, 2, 128; D
+     4 to 32, the route's upper limit 16384, and 28672 = 2^12 7, which goes
+     direct), every (G, R) the control plane's (R_fwd, R_bwd) programs
+     launch (phase 5) at D 2048 and 4096, the mixed-radix one-pass kernels
+     at the serving widths 5120 and 12288 (G 2 a decode step, 128 a prefill
+     chunk) and their edges (D 12, 160, 960, 15360, 16200), the four-step
+     kernels at (1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440)
+     and (3, 5, 40960), at their edges (1, 9, 262144) (more keys than a
+     pass B chunk holds) and (2, 3, 18000) (a divisor split, 4-column
+     tiles), and at the LM training shapes (4, 4, D) for D = 128 d_model =
+     524288, 655360 and 1572864 (deepseek-7b, qwen2.5-32b,
+     mistral-large-123b); at the edges, the LM shapes and (128, 4, 12288)
+     against a float64 torch.fft oracle made in the phase (the O(D^2)
+     plain version would gather terabytes), with the adjoint identity
+     <bind(Z), S> = <Z, unbind(S)> to float32 rounding; the direct kernels
+     called explicitly at the main-path shapes; two runs of each FFT and
+     four-step kernel bitwise equal; the autograd Functions' gradients
+     against autograd of the plain version (1e-4); zero key gradient;
    - the two paged-attention decode kernels in float32, bfloat16 and over
      int8 pools (in float32 and in bfloat16 compute): the geometry of
      tests/test_paged_kernel.py (shuffled
@@ -100,19 +107,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    call is enqueued behind a sleep kernel, so its time is the device's
    alone (each kernel's host-inclusive time is kept beside it): bind and
    unbind at the training shapes (16, 4, 2048) and (16, 4, 4096), the
-   serving shapes (2, 4, 4096) and (128, 4, 4096) and the
-   ``BENCH_roofline.json`` circconv shapes (B 64, R 4, D 256 and 1024),
-   each through the FFT kernel, the direct kernel, its plain version and
-   the torch.fft route of the same function (the library yardstick); each paged
+   serving shapes (2, 4, 4096) and (128, 4, 4096), the mixed-radix serving
+   shapes (2, 4, 5120), (128, 4, 5120), (2, 4, 12288) and (128, 4, 12288)
+   and the ``BENCH_roofline.json`` circconv shapes (B 64, R 4, D 256 and
+   1024), each through the FFT kernel, the direct kernel, its plain version
+   (fewer runs where one call takes milliseconds) and the torch.fft route
+   of the same function (the library yardstick); each paged
    kernel at the serving shape with positions 128-160 and with one live
    slot at position 511 (with the wrapper's split plan, the share of the
    bound and the host-included time), its plain version and, for the
    float kernel, gather_pages followed by
    ``scaled_dot_product_attention``.  The four-step kernels at the LM
-   training shape (4, 4, 524288): the kernel, the torch.fft route, the
-   bound, and the direct kernel that took this D before, one call a side;
-   their plain version at (2, 4, 65536) (three single calls, host
-   included).  Host
+   training shapes (4, 4, D), D = 524288, 655360 and 1572864: the kernel,
+   the torch.fft route, the bound, the build of the keys' spectra (once per
+   key tensor), and the direct kernel, which took every D but the first
+   before, one call a side; their plain version at (2, 4, 65536) (three
+   single calls, host included).  Host
    included: the VGG-16 train step
    with the kernel and the fft backend in turns, and a ``torch.profiler``
    breakdown of it; the serving engine's decode-step time, tokens/s and
@@ -137,6 +147,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    - The step time (CUDA events around single steps, the median of 3,
      host included) and a ``torch.profiler`` breakdown of 2 steps: device
      time, idle share, the codec's share.
+8. The LM training path at a width that is not a power of two, after
+   ``free_cuda()``: ``qwen2.5-32b`` at full width (d_model 5120, 40 heads
+   and 8 KV heads of 128, d_ff 27648, vocab 152064, QKV bias), its depth
+   cut to 4 layers (3.51 B parameters; float32 params, gradients and two
+   AdamW moments take 56.1 GB, 16 bytes a parameter, 263 GB at the full
+   64), otherwise as phase 7: the codec after layer 2 at D = 128 * 5120 =
+   655360, G = 4, on the mixed-radix four-step kernels (1280 x 512).
+   Step-0 parity against ``backend=fft`` at phase 7's tolerances; 3 steps
+   with finite losses, exactly 2 + 2 launches a step, all on ``"fft4"`` at
+   (4, 4, 655360) and none direct; 4 * 655360 * 4 = 10,485,760 wire bytes a
+   direction a step; the step time and profile.  No checkpoint (phase 7
+   covers it).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -182,20 +204,37 @@ KERNEL_SHAPES = [(1, 1, 64), (2, 2, 128), (4, 4, 128), (8, 2, 256), (3, 5, 96),
 FFT_EDGE_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
                    (2, 16, 4096), (1, 4, 4096), (2, 4, 4096), (128, 4, 4096),
                    (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384),
-                   (1, 1, 20480)]
-# the four-step kernels (power-of-two D past 16384): against the plain
-# version (its gather in chunks there) at two shapes, and at the LM training
-# path's shape (G = B/R = 4, R 4, D = S * d_model = 128 * 4096), where the
-# O(D^2) plain version would gather terabytes, against a float64 torch.fft
-# oracle computed in the phase (never on the path)
-FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536)]
-LM_SHAPE = (4, 4, 524288)
+                   (1, 1, 28672)]
+# the mixed-radix one-pass kernels (D = 2^a 3^b 5^c, not a power of two):
+# the serving widths of qwen2.5-32b / pixtral-12b (5120 = 2^10 5) and
+# mistral-large-123b (12288 = 2^12 3) at a decode step (G 2) and a 64-token
+# prefill chunk at 8 slots (G 128), and edges: D 12 and 160 (D/4 not a
+# multiple of 32), two odd radices (960, 15360), the largest odd part
+# (16200 = 8 3^4 5^2) and R 9
+MIXED_SERVE_SHAPES = [(2, 4, 5120), (128, 4, 5120), (2, 4, 12288), (128, 4, 12288)]
+MIXED_SHAPES = MIXED_SERVE_SHAPES + [(2, 3, 12), (3, 2, 160), (2, 9, 960),
+                                     (1, 3, 15360), (1, 2, 16200)]
+# the four-step kernels (D past 16384): against the plain version (its
+# gather in chunks there) at five shapes, three of them mixed radix, and at
+# the LM training paths' shapes (G = B/R = 4, R 4, D = S * d_model at S 128:
+# deepseek-7b, qwen2.5-32b, mistral-large-123b), where the O(D^2) plain
+# version would gather terabytes, against a float64 torch.fft oracle
+# computed in the phase (never on the path), as at (128, 4, 12288)
+FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440),
+               (3, 5, 40960)]
+# the four-step kernels' other branches, against the oracle: R 9 past the
+# 8 keys a pass B chunk holds at 262144 = 512 x 512, and 18000 = 180 x 100,
+# a divisor split with 4-column tiles
+FFT4_EDGE_SHAPES = [(1, 9, 262144), (2, 3, 18000)]
+LM_SHAPES = [(4, 4, 524288), (4, 4, 655360), (4, 4, 1572864)]
+LM_SHAPE = LM_SHAPES[0]
+ORACLE_SHAPES = LM_SHAPES + FFT4_EDGE_SHAPES + [(128, 4, 12288)]
 # the direct kernels, called explicitly at the main-path shapes
 DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
 # phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
 # circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
 TIME_SHAPES = [(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
-               (16, 4, 256), (16, 4, 1024)]
+               (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES
 TOL = {"float32": 1e-5}
 # bfloat16 outputs are rounded once, by half an ulp (at most 2^-8 of the
 # element, 2^-8/sqrt(3) in RMS), so their limits scale with the compared
@@ -248,6 +287,16 @@ LM_TIMED_STEPS = 3
 LM_PROFILED_STEPS = 2
 LM_WIRE_BYTES = 4 * 524288 * 4   # G rows of D float32, a direction a step
 
+# phase 8, the LM training path at a width that is not a power of two:
+# qwen2.5-32b at full width, depth cut so that float32 params, gradients
+# and two AdamW moments (56.1 GB at 4 layers, 263 GB at the full 64) fit
+# the card; the codec after layer 2, D = 128 * 5120 = 655360, G = 4, on the
+# mixed-radix four-step kernels
+QWEN_ARCH = "qwen2.5-32b"
+QWEN_LAYERS = 4
+QWEN_SHAPE = (4, 4, 655360)
+QWEN_WIRE_BYTES = 4 * 655360 * 4
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -298,6 +347,17 @@ def cuda_ms(fn, warmup=5, calls=10, reps=21, hide_host=True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def cuda_ms_scaled(fn, hide_host=True) -> float:
+    """``cuda_ms`` for a call that may take milliseconds (a plain version or
+    a direct kernel at a large shape): one call is timed first, host
+    included, and a call over 2 ms is timed as the median of 3 single calls
+    after one warm-up, host included (no sleep could hide the host there,
+    and its share is small)."""
+    if cuda_ms(fn, warmup=1, calls=1, reps=1, hide_host=False) > 2.0:
+        return cuda_ms(fn, warmup=0, calls=1, reps=3, hide_host=False)
+    return cuda_ms(fn, hide_host=hide_host)
 
 
 def close(got, want, tol) -> tuple[bool, float]:
@@ -361,6 +421,15 @@ def circconv_pair(name, kernel_route, x, kext, oracle=False):
     return got, want
 
 
+def _record_suffix(kernel_route: str, D: int) -> str:
+    """The record's kernel of a route at D: "" the power-of-two one-pass
+    kernels, "_mixed" the mixed-radix ones (circconv_fft.cu both),
+    "_fft4", "_direct"."""
+    if kernel_route == "fft":
+        return "_mixed" if D & (D - 1) else ""
+    return "_" + kernel_route
+
+
 def kernel_checks(dev) -> dict:
     """Each kernel against its plain version on the same values.  The plain
     version runs on float64 copies, so the difference is the kernel's own
@@ -370,19 +439,21 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels import circconv, ops
 
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"bind_superpose": {}, "unbind": {}, "bind_superpose_fft4": {},
-            "unbind_fft4": {}, "bind_superpose_direct": {}, "unbind_direct": {}}
+    errs = {k + sfx: {} for sfx in ("", "_mixed", "_fft4", "_direct")
+            for k in ("bind_superpose", "unbind")}
     routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()
-                                + FFT4_SHAPES + [LM_SHAPE]))
-    # errors kept by kernel: the four-step kernels' apart from the others
-    cases = ([(s, r, "_fft4" if r == "fft4" else "")
+                                + MIXED_SHAPES + FFT4_SHAPES + FFT4_EDGE_SHAPES
+                                + LM_SHAPES))
+    # errors kept by kernel: the power-of-two one-pass kernels', the
+    # mixed-radix ones', the four-step ones' and the direct ones' apart
+    cases = ([(s, r, _record_suffix(r, s[-1]))
               for s in routed for r in [circconv.route(s[-1])]]
              + [(s, "direct", "_direct") for s in DIRECT_SHAPES])
     for (G, R, D), kernel_route, suffix in cases:
         K = hrr.generate_keys(gen, R, D, device=dev)
         kext = ops._kext(K)
         Z32 = torch.randn((G, R, D), generator=gen).to(dev)
-        oracle = (G, R, D) == LM_SHAPE
+        oracle = (G, R, D) in ORACLE_SHAPES
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             Z = Z32.to(dt)
             got, want = circconv_pair("bind_superpose", kernel_route, Z, kext,
@@ -414,8 +485,8 @@ def kernel_checks(dev) -> dict:
                 rhs = (Z.double() * got_u.double()).sum()
                 gap = float((lhs - rhs).abs() / (got.double().norm()
                                                  * S.double().norm()))
-                check(gap <= 1e-5, f"fft4 adjoint identity off by {gap} at "
-                      f"{(G, R, D)}")
+                check(gap <= 1e-5, f"{kernel_route} adjoint identity off by {gap} "
+                      f"at {(G, R, D)}")
                 ADJOINT_GAPS[f"{G}x{R}x{D}"] = gap
         del K, kext, Z32, Z, S, got, got_u, want
         free_cuda()
@@ -671,6 +742,19 @@ def route_counts() -> dict:
     return {f"{k}/{r}": n for (k, r), n in circconv.ROUTE_LAUNCHES.items()}
 
 
+def record_launches() -> dict:
+    """The circconv launches since the last reset, by the record's kernel
+    (``_record_suffix``: the power-of-two and the mixed-radix one-pass
+    kernels apart), from ``SHAPE_LAUNCHES`` and the route each D takes (a
+    main-path run launches through ``route(D)``)."""
+    from collections import Counter
+    from repro_torch.kernels import circconv
+    out = Counter()
+    for (name, G, R, D), n in circconv.SHAPE_LAUNCHES.items():
+        out[name + _record_suffix(circconv.route(D), D)] += n
+    return dict(out)
+
+
 def check_fft_route(routes: dict, per_kernel: int, what: str, route="fft"):
     """Every circconv launch went to ``route``'s kernels: ``per_kernel``
     each."""
@@ -701,7 +785,7 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
         losses.append(l)
     torch.cuda.synchronize()
     counts = dict(circconv.LAUNCHES)
-    routes = route_counts()
+    routes, by_kernel = route_counts(), record_launches()
     losses = torch.stack(losses).tolist()
     check(all(map(math.isfinite, losses)), f"{model} {spec}: non-finite loss {losses}")
     want = {"bind_superpose": 2 * steps, "unbind": 2 * steps}
@@ -711,7 +795,7 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
     check(mode == "cuda-kernel", f"{spec} ran as {mode}, not the CUDA kernel")
     return {"model": model, "spec": codec.spec(), "steps": steps,
             "batch": cfg.batch_size, "losses": losses, "launches": counts,
-            "route_launches": routes}
+            "route_launches": routes, "record_launches": by_kernel}
 
 
 # --------------------------------------------------------------------------
@@ -730,6 +814,8 @@ def serve_model(dtype, dev, quant=False):
 
 def free_cuda():
     import torch
+    from repro_torch.kernels import ops
+    ops.clear_key_caches()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -801,7 +887,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {**pa.LAUNCHES, **circconv.LAUNCHES}
-    routes = route_counts()
+    routes, by_kernel = route_counts(), record_launches()
     outs = {r.uid: r.out for r in done}
     gen = sum(len(o) for o in outs.values())
     st = eng.stats
@@ -812,7 +898,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
            "mean_ttft_ms": statistics.mean(r.t_first - r.t_submit
                                            for r in done) * 1e3,
            "finite_logits": finite[0], "launches": counts,
-           "route_launches": routes, "outs": outs,
+           "route_launches": routes, "record_launches": by_kernel, "outs": outs,
            **{k: st[k] for k in ("decode_steps", "prefill_chunks", "dispatches",
                                  "wire_bytes_fwd", "kv_read_execution_mode",
                                  "codec_execution_mode")}}
@@ -1247,7 +1333,7 @@ def control_plane(dev) -> dict:
         link.observe(*observed[-1])
     torch.cuda.synchronize()
     counts = dict(circconv.LAUNCHES)
-    routes = route_counts()
+    routes, by_kernel = route_counts(), record_launches()
     by_shape = cp_counted_shapes()
     check(len(made) == 12, f"control plane: make ran again ({len(made)})")
 
@@ -1290,7 +1376,7 @@ def control_plane(dev) -> dict:
             "make_calls": len(made), "steps": steps, "executed": executed,
             "served": {f"{rf},{rb}": n for (rf, rb), n in sorted(served.items())},
             "wire_checked": wire_checked, "launches": counts,
-            "route_launches": routes,
+            "route_launches": routes, "record_launches": by_kernel,
             "launches_by_shape": by_shape,
             "faults": {"rates": CP_FAULT_RATES, "bursts": CP_FAULT_BURSTS,
                        "retry_budget": CP_FAULT_BUDGET,
@@ -1442,7 +1528,8 @@ def cp_bnpp_resnet(dev) -> dict:
 # --------------------------------------------------------------------------
 
 def circconv_operands(G, R, D, dev, seed=SEED + 1):
-    """Keys, their spectrum, Kext, Z (G, R, D) and S (G, D), float32."""
+    """Keys, their spectrum, Kext, the four-step kernels' key spectra (None
+    off that route), Z (G, R, D) and S (G, D), float32."""
     import torch
     from repro_torch.core import hrr
     from repro_torch.kernels import ops
@@ -1450,7 +1537,7 @@ def circconv_operands(G, R, D, dev, seed=SEED + 1):
     K = hrr.generate_keys(gen, R, D, device=dev)
     Z = torch.randn((G, R, D), generator=gen).to(dev)
     S = torch.randn((G, D), generator=gen).to(dev)
-    return K, hrr.key_spectrum(K), ops._kext(K), Z, S
+    return (K, hrr.key_spectrum(K), *ops._keys(K), Z, S)
 
 
 def circconv_bound(name, G, R, D) -> dict:
@@ -1474,14 +1561,21 @@ def circconv_bound(name, G, R, D) -> dict:
 
 def circconv_calls(G, R, D, dev):
     """name -> (data, route entry point, plain version, torch.fft route) of
-    bind and unbind at (G, R, D), and the Kext the entry points take."""
+    bind and unbind at (G, R, D), and the Kext the plain versions take.  The
+    entry point ``on(route)`` runs the named route's kernel on the data, the
+    four-step one with the keys' spectra made beforehand (as ``ops`` keeps
+    them)."""
     from repro_torch.core import hrr
     from repro_torch.kernels import circconv
-    K, KF, kext, Z, S = circconv_operands(G, R, D, dev)
-    return {"bind_superpose": (Z, circconv._bind_superpose_on,
+    K, KF, kext, spectra, Z, S = circconv_operands(G, R, D, dev)
+
+    def entry(fn, x):
+        return lambda r: fn(r, x, kext, spectra if r == "fft4" else None)
+
+    return {"bind_superpose": (Z, entry(circconv._bind_superpose_on, Z),
                                circconv.bind_superpose_plain,
                                lambda: hrr._bind_impl(Z, K, KF, "fft")),
-            "unbind": (S, circconv._unbind_on, circconv.unbind_plain,
+            "unbind": (S, entry(circconv._unbind_on, S), circconv.unbind_plain,
                        lambda: hrr._unbind_impl(S, K, KF, "fft"))}, kext
 
 
@@ -1494,53 +1588,66 @@ def kernel_times(dev, G, R, D) -> dict:
     kernel_route = circconv.route(D)
     out = {}
     for name, (x, on, plain, fft) in calls.items():
-        by_route = {r: cuda_ms(lambda r=r: on(r, x, kext))
+        by_route = {r: cuda_ms_scaled(lambda r=r: on(r))
                     for r in dict.fromkeys((kernel_route, "direct"))}
         out[name] = {
             "shape": [G, R, D], "route": kernel_route,
             "ms": by_route[kernel_route],
-            "ms_host_included": cuda_ms(lambda: on(kernel_route, x, kext),
-                                        hide_host=False),
+            "ms_host_included": cuda_ms(lambda: on(kernel_route), hide_host=False),
             "fft_ms": by_route.get("fft"), "direct_ms": by_route["direct"],
-            "plain_ms": cuda_ms(lambda: plain(x, kext)),
+            "plain_ms": cuda_ms_scaled(lambda: plain(x, kext)),
             "library_ms": cuda_ms(fft),
             **circconv_bound(name, G, R, D),
         }
+    del calls, kext
+    free_cuda()
     return out
 
 
 def fft4_times(dev) -> dict:
-    """bind and unbind on the four-step route at the LM training shape:
-    the kernel (device time, and host included), the torch.fft route of the
-    same function (the library yardstick), the bound, and the direct kernel
-    that took this D before, one call a side.  The plain version's O(D^2)
-    gather is out of reach there (terabytes), so it is timed at the largest
-    shape phase 2 holds it at, FFT4_SHAPES[-1], in fewer runs, host
-    included."""
-    G, R, D = LM_SHAPE
-    calls, kext = circconv_calls(G, R, D, dev)
+    """bind and unbind on the four-step route at the LM training shapes
+    LM_SHAPES: the kernel (device time, and host included), the torch.fft
+    route of the same function (the library yardstick, with the keys'
+    spectrum made beforehand, as the kernels' is), the bound, one build of
+    the keys' spectra (made once per key tensor, not per call), and the
+    direct kernel, one call a side.  The plain version's O(D^2) gather is
+    out of reach there (terabytes), so it is timed at the largest shape
+    phase 2 holds it at, (2, 4, 65536), in fewer runs, host included; each
+    shape's record carries that figure."""
+    from repro_torch.kernels import circconv
     out = {}
-    for name, (x, on, _, fft) in calls.items():
-        out[name] = {
-            "shape": [G, R, D], "route": "fft4",
-            "ms": cuda_ms(lambda: on("fft4", x, kext)),
-            "ms_host_included": cuda_ms(lambda: on("fft4", x, kext),
-                                        hide_host=False),
-            "library_ms": cuda_ms(fft),
-            "direct_one_call_ms": cuda_ms(lambda: on("direct", x, kext),
-                                          warmup=0, calls=1, reps=1,
-                                          hide_host=False),
-            **circconv_bound(name, G, R, D)}
-    del calls, kext
-    free_cuda()
-    G, R, D = FFT4_SHAPES[-1]
+    for G, R, D in LM_SHAPES:
+        calls, kext = circconv_calls(G, R, D, dev)
+        p = circconv.plan(D)
+
+        spectra_ms = cuda_ms(lambda: circconv.key_spectra(kext, p), warmup=2,
+                             calls=1, reps=5)
+        for name, (x, on, _, fft) in calls.items():
+            passes = device_top(lambda: on("fft4"), n=4)
+            out[f"{name}/{G}x{R}x{D}"] = {
+                "passes": [{"name": (re.search(r"\w+_kernel", t["name"])
+                                     or [t["name"][:40]])[0], "ms": t["ms"]}
+                           for t in passes],
+                "shape": [G, R, D], "route": "fft4", "sides": list(p.sides),
+                "ms": cuda_ms(lambda: on("fft4")),
+                "ms_host_included": cuda_ms(lambda: on("fft4"), hide_host=False),
+                "library_ms": cuda_ms(fft),
+                "key_spectra_ms": spectra_ms,
+                "direct_one_call_ms": cuda_ms(lambda: on("direct"), warmup=0,
+                                              calls=1, reps=1, hide_host=False),
+                **circconv_bound(name, G, R, D)}
+        del calls, kext
+        free_cuda()
+    G, R, D = (2, 4, 65536)
     calls, kext = circconv_calls(G, R, D, dev)
     for name, (x, _, plain, _) in calls.items():
-        out[name]["plain_shape"] = [G, R, D]
         # host included: its chunked gather is a Python loop of hundreds
         # of launches, which outlasts the sleep that hides the host
-        out[name]["plain_ms"] = cuda_ms(lambda: plain(x, kext), warmup=1,
-                                        calls=1, reps=3, hide_host=False)
+        plain_ms = cuda_ms(lambda: plain(x, kext), warmup=1, calls=1, reps=3,
+                           hide_host=False)
+        for key, t in out.items():
+            if key.startswith(name + "/"):
+                t["plain_shape"], t["plain_ms"] = [G, R, D], plain_ms
     return out
 
 
@@ -1703,20 +1810,22 @@ def step_profile(dev, steps=5) -> dict:
 # phase 7: the LM training path
 # --------------------------------------------------------------------------
 
-def lm_config():
-    """deepseek-7b at full width (d_model 4096, 32 heads of 128, d_ff
-    11008, vocab 102400), its depth cut to LM_LAYERS."""
+def lm_config(arch=LM_ARCH, layers=LM_LAYERS):
+    """``arch`` at full width (deepseek-7b: d_model 4096, 32 heads of 128,
+    d_ff 11008, vocab 102400), its depth cut to ``layers``."""
     from repro_torch.configs.base import get_config
-    return dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
-def lm_args(ckpt_dir):
-    """``launch/train.py``'s flags for the run: the CLI's own parser."""
+def lm_args(ckpt_dir, arch=LM_ARCH):
+    """``launch/train.py``'s flags for the run: the CLI's own parser;
+    ``ckpt_dir`` None writes no checkpoint."""
     from repro_torch.launch import train
     return train.build_parser().parse_args([
-        "--arch", LM_ARCH, "--steps", str(LM_STEPS), "--batch", str(LM_BATCH),
+        "--arch", arch, "--steps", str(LM_STEPS), "--batch", str(LM_BATCH),
         "--seq", str(LM_SEQ), "--codec", LM_CODEC, "--seed", str(SEED),
-        "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"])
+        "--log-every", "1", "--device", "cuda"]
+        + ([] if ckpt_dir is None else ["--ckpt-dir", str(ckpt_dir)]))
 
 
 def lm_parity(params, cfg, args, dev) -> dict:
@@ -1753,15 +1862,18 @@ def lm_parity(params, cfg, args, dev) -> dict:
             "grad_leaf_rel_err": gerr, "cut_snr_kernel": sk, "cut_snr_fft": sf}
 
 
-def lm_training(dev) -> dict:
-    """(a) step-0 parity; (b) ``launch.train.run_standard`` for LM_STEPS
-    steps from the same weights, launch counts reset just before and read
-    just after: finite losses, 2 + 2 circconv launches a step, all on the
-    four-step route at LM_SHAPE, wire bytes a direction a step; (c) the
-    checkpoint it wrote (``--ckpt-dir``) restored bitwise, then deleted;
-    (d) the step time (CUDA events around single steps, the median of
-    LM_TIMED_STEPS, host included) and a ``torch.profiler`` breakdown over
-    LM_PROFILED_STEPS steps: device time, idle share, the codec's share."""
+def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
+                wire_bytes=LM_WIRE_BYTES, ckpt=True) -> dict:
+    """``arch`` cut to ``layers``: (a) step-0 parity; (b)
+    ``launch.train.run_standard`` for LM_STEPS steps from the same weights,
+    launch counts reset just before and read just after: finite losses,
+    2 + 2 circconv launches a step, all on the four-step route at
+    ``shape``, none direct, ``wire_bytes`` a direction a step; (c) with
+    ``ckpt``, the checkpoint it wrote (``--ckpt-dir``) restored bitwise,
+    then deleted; (d) the step time (CUDA events around single steps, the
+    median of LM_TIMED_STEPS, host included) and a ``torch.profiler``
+    breakdown over LM_PROFILED_STEPS steps: device time, idle share, the
+    codec's share."""
     import shutil
 
     import torch
@@ -1775,10 +1887,11 @@ def lm_training(dev) -> dict:
     from repro_torch.models import lm as lm_lib
     from repro_torch.transport import split_comm_bytes
 
-    cfg = lm_config()
-    ckpt_dir = OUT_DIR / "lm_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    args = lm_args(ckpt_dir)
+    cfg = lm_config(arch, layers)
+    ckpt_dir = OUT_DIR / "lm_ckpt" if ckpt else None
+    if ckpt:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = lm_args(ckpt_dir, arch)
     # run_standard's own init (the seed's generator on the card), made here
     # so that the parity runs on the weights the run starts from
     params = lm_lib.init_lm_params(args.seed, cfg, device=dev)
@@ -1794,7 +1907,8 @@ def lm_training(dev) -> dict:
     losses = train.run_standard(args, cfg, params=params, out=out)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts, routes = dict(circconv.LAUNCHES), route_counts()
+    counts, routes, by_kernel = (dict(circconv.LAUNCHES), route_counts(),
+                                 record_launches())
     shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
               for k, n in circconv.SHAPE_LAUNCHES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1802,8 +1916,8 @@ def lm_training(dev) -> dict:
           f"lm training losses {losses}")
     want = {"bind_superpose": 2 * LM_STEPS, "unbind": 2 * LM_STEPS}
     check(counts == want, f"lm training launches {counts}, want {want}")
-    check_fft_route(routes, 2 * LM_STEPS, "lm training", route="fft4")
-    G, R, D = LM_SHAPE
+    check_fft_route(routes, 2 * LM_STEPS, f"lm training {arch}", route="fft4")
+    G, R, D = shape
     want_shapes = {f"{k}/{G}x{R}x{D}": 2 * LM_STEPS
                    for k in ("bind_superpose", "unbind")}
     check(shapes == want_shapes, f"lm training shapes {shapes}, want {want_shapes}")
@@ -1812,20 +1926,23 @@ def lm_training(dev) -> dict:
     check(mode == "cuda-kernel", f"{LM_CODEC} ran as {mode}, not the CUDA kernels")
     wire_fwd = split_comm_bytes(codec, args.batch, directions=1)
     wire_bwd = split_comm_bytes(codec, args.batch) - wire_fwd
-    check(wire_fwd == wire_bwd == LM_WIRE_BYTES,
-          f"lm wire bytes {wire_fwd} + {wire_bwd}, want {LM_WIRE_BYTES} each")
+    check(wire_fwd == wire_bwd == wire_bytes,
+          f"lm wire bytes {wire_fwd} + {wire_bwd}, want {wire_bytes} each")
 
-    t0 = time.perf_counter()
-    template = {"params": out["params"]}
-    restored = restore_checkpoint(str(ckpt_dir), LM_STEPS, template)
-    restore_s = time.perf_counter() - t0
-    bitwise = all(torch.equal(a, b) for a, b in
-                  zip(tree_leaves(restored), tree_leaves(template)))
-    check(bitwise, "lm checkpoint did not restore bitwise")
-    ckpt_bytes = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
-    del restored
-    shutil.rmtree(ckpt_dir)     # 9.8 GB: the output directory keeps the record only
-    free_cuda()
+    ckpt_bytes = restore_s = None
+    if ckpt:
+        t0 = time.perf_counter()
+        template = {"params": out["params"]}
+        restored = restore_checkpoint(str(ckpt_dir), LM_STEPS, template)
+        restore_s = time.perf_counter() - t0
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(restored), tree_leaves(template)))
+        check(bitwise, "lm checkpoint did not restore bitwise")
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt_dir.rglob("*")
+                         if p.is_file())
+        del restored
+        shutil.rmtree(ckpt_dir)   # 9.8 GB: the output directory keeps the record only
+        free_cuda()
 
     step = out["step_fns"][None]          # the static codec's one callable
     data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
@@ -1854,13 +1971,50 @@ def lm_training(dev) -> dict:
                 for n, t, c in rows[:10]]}
     del out, step, batch
     free_cuda()
-    return {"arch": LM_ARCH, "layers": LM_LAYERS, "params": n_params,
+    return {"arch": arch, "layers": layers, "params": n_params, "shape": list(shape),
             "batch": LM_BATCH, "seq": LM_SEQ, "codec": LM_CODEC,
             "parity": parity, "losses": losses, "launches": counts,
-            "route_launches": routes, "shape_launches": shapes,
+            "route_launches": routes, "record_launches": by_kernel,
+            "shape_launches": shapes,
             "wire_bytes": [wire_fwd, wire_bwd], "run_s": run_s,
             "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes,
             "restore_s": restore_s, "step_ms": step_ms, "profile": prof_out}
+
+
+def print_lm(card, lm):
+    """Phase 7's and 8's lines."""
+    par, lp = lm["parity"], lm["profile"]
+    print(f"lm training {lm['arch']} full width, {lm['layers']} layers (cut after "
+          f"superblock {lm['layers'] // 2}), {lm['params'] / 1e9:.3f} B params, "
+          f"B {LM_BATCH} S {LM_SEQ}, {LM_CODEC} (D {lm['shape'][2]}): step-0 "
+          f"kernels vs backend=fft loss {par['loss_kernel']:.6f} vs "
+          f"{par['loss_fft']:.6f} (rel err {par['loss_rel_err']:.3g}), grad leaf "
+          f"rel err {par['grad_leaf_rel_err']:.3g}, cut SNR "
+          f"{par['cut_snr_kernel']:.4f} dB (fft {par['cut_snr_fft']:.4f})",
+          flush=True)
+    print(f"lm training run_standard: {LM_STEPS} steps, losses "
+          f"{[round(v, 4) for v in lm['losses']]}, launches {lm['launches']}, "
+          f"routes {lm['route_launches']}, by shape {lm['shape_launches']}, wire "
+          f"fwd {lm['wire_bytes'][0]:,d} B + bwd {lm['wire_bytes'][1]:,d} B a "
+          f"step, peak {lm['peak_gb']:.1f} GB; " + (
+              "no checkpoint" if lm["ckpt_bytes"] is None else
+              f"checkpoint {lm['ckpt_bytes']:,d} B restored bitwise in "
+              f"{lm['restore_s']:.1f} s"), flush=True)
+    print(f"time [{card}] lm train step ({lm['arch']} x{lm['layers']} layers, B "
+          f"{LM_BATCH} S {LM_SEQ}, {LM_CODEC}): {lm['step_ms']:.1f} ms (median "
+          f"of {LM_TIMED_STEPS}, host included)", flush=True)
+    if lp is None:
+        print(f"profile [{card}] lm train step: the profiler saw no device time "
+              "(not measured)")
+    else:
+        print(f"profile [{card}] lm train step: device {lp['device_ms_per_step']:.1f} "
+              f"ms of {lp['wall_ms_per_step']:.1f} ms wall (idle "
+              f"{lp['idle_share_profiled']:.3f} profiled, "
+              f"{lp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step); "
+              f"circconv kernels {lp['circconv_ms_per_step']:.4f} ms "
+              f"({lp['circconv_share']:.5f})", flush=True)
+        for r in lp["top"]:
+            print(f"  {r['ms_per_step']:.3f} ms x{r['calls_per_step']}  {r['name']}")
 
 
 def main() -> int:
@@ -2028,13 +2182,17 @@ def main() -> int:
                   f"plain {t['plain_ms']:.4f} ms, torch.fft {t['library_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), direct-form "
                   f"FLOPs at the f32 peak {t['direct_flops_ms']:.4f} ms", flush=True)
-    for name, t in fft4t.items():
-        print(f"time [{card}] {name} G,R,D={t['shape']} route fft4: kernel "
+    for key, t in fft4t.items():
+        print(f"time [{card}] {key.split('/')[0]} G,R,D={t['shape']} route fft4 "
+              f"{t['sides'][0]} x {t['sides'][1]}: kernel "
               f"{t['ms']:.4f} ms, host included {t['ms_host_included']:.4f} ms, "
               f"torch.fft {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB), direct kernel one "
+              f"({t['bound_by']}, {t['bytes'] / 1e6:.1f} MB), keys' spectra "
+              f"{t['key_spectra_ms']:.4f} ms once, direct kernel one "
               f"call {t['direct_one_call_ms']:.1f} ms; plain at "
-              f"G,R,D={t['plain_shape']} {t['plain_ms']:.2f} ms", flush=True)
+              f"G,R,D={t['plain_shape']} {t['plain_ms']:.2f} ms; passes (profiler) "
+              + ", ".join(f"{q['name']} {q['ms']:.4f}" for q in t["passes"]),
+              flush=True)
     for name, per in ptimes.items():
         for shape, t in per.items():
             lib = ("none" if t["library_ms"] is None
@@ -2094,36 +2252,12 @@ def main() -> int:
     free_cuda()
     lm = lm_training(dev)
     lap("lm_training")
-    par, lp = lm["parity"], lm["profile"]
-    print(f"lm training {LM_ARCH} full width, {LM_LAYERS} layers (cut after "
-          f"superblock {LM_LAYERS // 2}), {lm['params'] / 1e9:.3f} B params, "
-          f"B {LM_BATCH} S {LM_SEQ}, {LM_CODEC} (D {LM_SHAPE[2]}): step-0 "
-          f"kernels vs backend=fft loss {par['loss_kernel']:.6f} vs "
-          f"{par['loss_fft']:.6f} (rel err {par['loss_rel_err']:.3g}), grad leaf "
-          f"rel err {par['grad_leaf_rel_err']:.3g}, cut SNR "
-          f"{par['cut_snr_kernel']:.4f} dB (fft {par['cut_snr_fft']:.4f})",
-          flush=True)
-    print(f"lm training run_standard: {LM_STEPS} steps, losses "
-          f"{[round(v, 4) for v in lm['losses']]}, launches {lm['launches']}, "
-          f"routes {lm['route_launches']}, by shape {lm['shape_launches']}, wire "
-          f"fwd {lm['wire_bytes'][0]:,d} B + bwd {lm['wire_bytes'][1]:,d} B a "
-          f"step, peak {lm['peak_gb']:.1f} GB; checkpoint {lm['ckpt_bytes']:,d} B "
-          f"restored bitwise in {lm['restore_s']:.1f} s", flush=True)
-    print(f"time [{card}] lm train step ({LM_ARCH} x{LM_LAYERS} layers, B "
-          f"{LM_BATCH} S {LM_SEQ}, {LM_CODEC}): {lm['step_ms']:.1f} ms (median "
-          f"of {LM_TIMED_STEPS}, host included)", flush=True)
-    if lp is None:
-        print(f"profile [{card}] lm train step: the profiler saw no device time "
-              "(not measured)")
-    else:
-        print(f"profile [{card}] lm train step: device {lp['device_ms_per_step']:.1f} "
-              f"ms of {lp['wall_ms_per_step']:.1f} ms wall (idle "
-              f"{lp['idle_share_profiled']:.3f} profiled, "
-              f"{lp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step); "
-              f"circconv kernels {lp['circconv_ms_per_step']:.4f} ms "
-              f"({lp['circconv_share']:.5f})", flush=True)
-        for r in lp["top"]:
-            print(f"  {r['ms_per_step']:.3f} ms x{r['calls_per_step']}  {r['name']}")
+    print_lm(card, lm)
+    free_cuda()
+    qwen = lm_training(dev, QWEN_ARCH, QWEN_LAYERS, QWEN_SHAPE, QWEN_WIRE_BYTES,
+                       ckpt=False)
+    lap("lm_training_qwen")
+    print_lm(card, qwen)
 
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
@@ -2135,6 +2269,8 @@ def main() -> int:
                ("unbind", "unbind", "fft", "circconv_fft.cu"),
                ("bind_superpose_direct", "bind_superpose", "direct", "circconv.cu"),
                ("unbind_direct", "unbind", "direct", "circconv.cu"),
+               ("bind_superpose_mixed", "bind_superpose", "fft", "circconv_fft.cu"),
+               ("unbind_mixed", "unbind", "fft", "circconv_fft.cu"),
                ("bind_superpose_fft4", "bind_superpose", "fft4", "circconv_fft4.cu"),
                ("unbind_fft4", "unbind", "fft4", "circconv_fft4.cu"),
                ("paged_attention", "paged_attention", None, "paged_attention.cu"),
@@ -2143,8 +2279,11 @@ def main() -> int:
     # at the shapes the record's launches ran: the FFT kernels' from the
     # routed float32 calls at the VGG-16 train step's shape and every
     # control-plane shape, and from the gradients; the direct kernels' from
-    # their explicit calls at the train step's shape
-    lm_key = "{}x{}x{}/float32".format(*LM_SHAPE)
+    # their explicit calls at the train step's shape; the mixed-radix
+    # one-pass kernels' at the four serving shapes; the four-step kernels'
+    # at the three LM training shapes, against the float64 oracle
+    serve_keys = ["{}x{}x{}/float32".format(*sh) for sh in MIXED_SERVE_SHAPES]
+    lm_keys = ["{}x{}x{}/float32".format(*sh) for sh in LM_SHAPES]
     cp_keys = ["16x4x2048/float32"] + [f"{G}x{R}x{D}/float32"
                                        for G, R, D in cp_kernel_shapes() if D == 2048]
     main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
@@ -2154,26 +2293,37 @@ def main() -> int:
                  "bind_superpose_direct":
                      errs["bind_superpose_direct"]["16x4x2048/float32"],
                  "unbind_direct": errs["unbind_direct"]["16x4x2048/float32"],
-                 # the LM training shape, against the float64 oracle
-                 "bind_superpose_fft4": errs["bind_superpose_fft4"][lm_key],
-                 "unbind_fft4": errs["unbind_fft4"][lm_key],
+                 "bind_superpose_mixed": max(errs["bind_superpose_mixed"][k]
+                                             for k in serve_keys),
+                 "unbind_mixed": max(errs["unbind_mixed"][k] for k in serve_keys),
+                 "bind_superpose_fft4": max(errs["bind_superpose_fft4"][k]
+                                            for k in lm_keys),
+                 "unbind_fft4": max(errs["unbind_fft4"][k] for k in lm_keys),
                  # the serving shape, in the dtype each serving run calls
                  "paged_attention": errs["paged_attention"]["main/float32"],
                  "paged_attention_quant":
                      errs["paged_attention_quant"]["main/bfloat16"]}
-    # the main path's run and the control plane's
-    launches = {"bind_superpose": main_run["route_launches"]["bind_superpose/fft"]
-                + cp["route_launches"]["bind_superpose/fft"],
-                "unbind": main_run["route_launches"]["unbind/fft"]
-                + cp["route_launches"]["unbind/fft"],
-                "bind_superpose_direct":
-                    main_run["route_launches"]["bind_superpose/direct"],
-                "unbind_direct": main_run["route_launches"]["unbind/direct"],
-                # the LM training run's
-                "bind_superpose_fft4": lm["route_launches"]["bind_superpose/fft4"],
-                "unbind_fft4": lm["route_launches"]["unbind/fft4"],
-                "paged_attention": rk["launches"]["paged_attention"],
-                "paged_attention_quant": rq["launches"]["paged_attention_quant"]}
+    # the circconv kernels' launches in each main-path run, counted by the
+    # run and read just after it (record_launches): the one-pass kernels'
+    # in the VGG-16 main run and the control plane's, the direct ones' in
+    # the main run, the four-step ones' in the two LM training runs
+    # (deepseek-7b, qwen2.5-32b), the mixed-radix one-pass ones' over every
+    # run; every width these runs take is a power of two or past shared
+    # memory, so that sum must be 0
+    def counted(name, runs):
+        return sum(r["record_launches"].get(name, 0) for r in runs)
+
+    path_runs = [main_run, *other_runs, rk, rg, rq, cp, lm, qwen]
+    launches = {name: counted(name, runs) for name, runs in (
+        ("bind_superpose", [main_run, cp]), ("unbind", [main_run, cp]),
+        ("bind_superpose_direct", [main_run]), ("unbind_direct", [main_run]),
+        ("bind_superpose_mixed", path_runs), ("unbind_mixed", path_runs),
+        ("bind_superpose_fft4", [lm, qwen]), ("unbind_fft4", [lm, qwen]))}
+    check(launches["bind_superpose_mixed"] == launches["unbind_mixed"] == 0,
+          f"mixed-radix one-pass launches on the main path: {launches}")
+    launches.update({"paged_attention": rk["launches"]["paged_attention"],
+                     "paged_attention_quant":
+                         rq["launches"]["paged_attention_quant"]})
     vgg = times["16x4x2048"]
 
     def timing(name, wrapper, kernel_route):
@@ -2186,11 +2336,27 @@ def main() -> int:
                     "one_slot": {k: one[k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms", "splits",
                         "share_of_bound", "ms_host_included")}}
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                "direct_one_call_ms", "key_spectra_ms", "sides")
         if kernel_route == "fft4":
-            t = fft4t[wrapper]
-            return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms", "shape", "plain_shape",
-                                      "direct_one_call_ms")}
+            # this slice's path's shape, the qwen2.5-32b LM step's, and the
+            # others beside it
+            t = fft4t["{}/{}x{}x{}".format(wrapper, *QWEN_SHAPE)]
+            return {**{k: t[k] for k in keys + ("plain_shape",)},
+                    "by_shape": {k.split("/")[1]: {k2: v[k2] for k2 in keys}
+                                 for k, v in fft4t.items()
+                                 if k.startswith(wrapper + "/")}}
+        if name.endswith("_mixed"):
+            # the prefill chunk at mistral-large-123b's width, and the other
+            # serving shapes beside it
+            by = {f"{G}x{R}x{D}": times[f"{G}x{R}x{D}"][wrapper]
+                  for G, R, D in MIXED_SERVE_SHAPES}
+            t = by["128x4x12288"]
+            return {**{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "shape", "direct_ms")},
+                    "by_shape": {k: {k2: v[k2] for k2 in (
+                        "ms", "plain_ms", "bound_ms", "library_ms", "direct_ms")}
+                        for k, v in by.items()}}
         t = vgg[wrapper]
         return {"ms": t[f"{kernel_route}_ms"],
                 **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",
@@ -2220,6 +2386,7 @@ def main() -> int:
                           "masked_decode_bitwise": cp_bits, "table2": cp_t2,
                           "bnpp_resnet50": cp_bn},
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
+        "lm_training_qwen": qwen,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

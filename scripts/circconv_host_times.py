@@ -24,6 +24,9 @@ wrappers with this script; run two trees in one call, alternating
 
     python3 scripts/circconv_host_times.py --label change
     python3 scripts/circconv_host_times.py --src /path/to/parent/src --label parent
+    python3 scripts/circconv_host_times.py --shapes 2,4,5120 128,4,12288
+
+``--shapes`` takes G,R,D triples in place of the default shapes.
 
 Prints the card's name and power limit, then one JSON line per run.
 """
@@ -45,7 +48,12 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--label", default="", help="a name for the tree timed")
+    ap.add_argument("--shapes", nargs="+", default=None, metavar="G,R,D",
+                    help="shapes to time (default: %s)" % " ".join(
+                        ",".join(map(str, s)) for s in SHAPES))
     args = ap.parse_args()
+    shapes = (SHAPES if args.shapes is None
+              else [tuple(int(v) for v in s.split(",")) for s in args.shapes])
     sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
@@ -59,7 +67,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     rows = []
-    for G, R, D in SHAPES:
+    for G, R, D in shapes:
         K = torch.randn((R, D), generator=gen) / math.sqrt(D)
         kext = torch.cat([K, K], dim=1).to(dev)
         Z = torch.randn((G, R, D), generator=gen).to(dev)

@@ -34,13 +34,16 @@ SIGNATURES = {
         "circconv_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
         "circconv_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "circconv_fft": {
-        "circconv_fft_bind_superpose": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "circconv_fft_unbind": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "circconv_fft": {   # plan, table, x, kext, out, G, R, dtype, stream
+        "circconv_fft_table": [_P, _P, _P],
+        "circconv_fft_bind_superpose": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "circconv_fft_unbind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
-    "circconv_fft4": {   # x, kext, out, scratch, scratch bytes, G, R, D, dtype, stream
-        "circconv_fft4_bind_superpose": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-        "circconv_fft4_unbind": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "circconv_fft4": {   # plan, x, spec, tables, out, scratch, bytes, G, R, dtype, stream
+        "circconv_fft4_tables": [_P, _P, _P],
+        "circconv_fft4_key_spectra": [_P, _P, _P, _P, _P, _LL, _I, _P],
+        "circconv_fft4_bind_superpose": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+        "circconv_fft4_unbind": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     },
     "paged_attention": {
         "paged_attention_prepare": [_P, _I, _I, _I],

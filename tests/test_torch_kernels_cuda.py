@@ -32,6 +32,23 @@ FFT_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
 # R 4, D = 128 * 4096) against a float64 torch.fft oracle
 FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536)]
 FFT4_ORACLE_SHAPES = [(4, 4, 524288)]
+# the mixed-radix one-pass kernels (D = 2^a 3^b 5^c): the serving widths of
+# qwen2.5-32b / pixtral-12b (5120) and mistral-large-123b (12288) at a
+# decode step (G 2) and a 64-token prefill chunk at 8 slots (G 128), and
+# edges: D 12 and 160 (D/4 not a multiple of 32), two odd radices (960,
+# 15360), the largest odd part (16200 = 8 3^4 5^2), R 9 (a cluster of 8)
+MIXED_SHAPES = [(2, 4, 5120), (128, 4, 5120), (2, 4, 12288), (2, 3, 12),
+                (3, 2, 160), (2, 9, 960), (1, 3, 15360), (1, 2, 16200)]
+MIXED_ORACLE_SHAPES = [(128, 4, 12288)]
+# the four-step kernels at mixed radix: against the plain version, and at
+# the LM training shapes of qwen2.5-32b (D = 128 * 5120, 1280 x 512) and
+# mistral-large-123b (D = 128 * 12288, 1536 x 1024) against the oracle
+FFT4_MIXED_SHAPES = [(1, 2, 20480), (2, 4, 61440), (3, 5, 40960)]
+FFT4_MIXED_ORACLE_SHAPES = [(4, 4, 655360), (4, 4, 1572864)]
+# the four-step kernels' other branches, against the oracle: R 9 past the
+# keys a pass B chunk holds (262144 = 512 x 512, 8 keys a chunk), and a D
+# whose split is a divisor of 4-point tiles (18000 = 180 x 100)
+FFT4_EDGE_ORACLE_SHAPES = [(1, 9, 262144), (2, 3, 18000)]
 
 
 @pytest.fixture
@@ -115,28 +132,50 @@ def _oracle(name, x, K):
     return torch.fft.ifft(X[:, None, :] * Kf.conj(), dim=-1).real
 
 
-@pytest.mark.parametrize("G,R,D", FFT4_SHAPES + FFT4_ORACLE_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fft4_kernels_match_plain_on_card(dev, G, R, D, dtype):
-    assert circconv.route(D) == "fft4"
-    Z, K = _data(G, R, D, dev, seed=8)
+def _check_routed(kernel_route, G, R, D, dtype, oracle, seed):
+    """bind and unbind through ``kernel_route`` against the plain version,
+    or the float64 torch.fft oracle with ``oracle``."""
+    assert circconv.route(D) == kernel_route
+    Z, K = _data(G, R, D, dev="cuda", seed=seed)
     kext = ops._kext(K)
     Z = Z.to(dtype)
-    S = _routed("bind", "fft4", Z, kext)
-    oracle = (G, R, D) in FFT4_ORACLE_SHAPES
+    S = _routed("bind", kernel_route, Z, kext)
     _close(S, _oracle("bind", Z, K) if oracle
            else circconv.bind_superpose_plain(Z.double(), kext.double()), dtype)
-    Zh = _routed("unbind", "fft4", S, kext)
+    Zh = _routed("unbind", kernel_route, S, kext)
     _close(Zh, _oracle("unbind", S, K) if oracle
            else circconv.unbind_plain(S.double(), kext.double()), dtype)
     torch.cuda.synchronize()
     assert S.dtype == dtype and S.shape == (G, D) and Zh.shape == (G, R, D)
 
 
-def test_fft4_kernels_are_bitwise_repeatable_and_adjoint(dev):
+@pytest.mark.parametrize("G,R,D", FFT4_SHAPES + FFT4_ORACLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fft4_kernels_match_plain_on_card(dev, G, R, D, dtype):
+    _check_routed("fft4", G, R, D, dtype, (G, R, D) in FFT4_ORACLE_SHAPES, seed=8)
+
+
+@pytest.mark.parametrize("G,R,D", MIXED_SHAPES + MIXED_ORACLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_radix_fft_kernels_match_plain_on_card(dev, G, R, D, dtype):
+    _check_routed("fft", G, R, D, dtype, (G, R, D) in MIXED_ORACLE_SHAPES, seed=14)
+
+
+@pytest.mark.parametrize("G,R,D", FFT4_MIXED_SHAPES + FFT4_MIXED_ORACLE_SHAPES
+                         + FFT4_EDGE_ORACLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_radix_fft4_kernels_match_plain_on_card(dev, G, R, D, dtype):
+    _check_routed("fft4", G, R, D, dtype, (G, R, D) in FFT4_MIXED_ORACLE_SHAPES
+                  + FFT4_EDGE_ORACLE_SHAPES, seed=15)
+
+
+@pytest.mark.parametrize("G,R,D", [(4, 4, 524288), (4, 4, 655360), (4, 4, 1572864),
+                                   (128, 4, 12288), (3, 5, 5120)]
+                         + FFT4_EDGE_ORACLE_SHAPES)
+def test_fft4_kernels_are_bitwise_repeatable_and_adjoint(dev, G, R, D):
     """Two runs equal bit for bit (no atomics), and <bind(Z), S> = <Z,
-    unbind(S)> to float32 rounding (each kernel's backward is the other)."""
-    G, R, D = 4, 4, 524288
+    unbind(S)> to float32 rounding (each kernel's backward is the other),
+    on the four-step route and the mixed-radix one-pass route."""
     Z, K = _data(G, R, D, dev, seed=9)
     kext = ops._kext(K)
     S = torch.randn(G, D, device=dev)
@@ -147,9 +186,10 @@ def test_fft4_kernels_are_bitwise_repeatable_and_adjoint(dev):
     assert abs(float(lhs - rhs)) <= 1e-5 * float(b.double().norm() * S.double().norm())
 
 
-@pytest.mark.parametrize("G,R,D", [(1, 1, 20480)])
+@pytest.mark.parametrize("G,R,D", [(1, 1, 28672)])
 def test_direct_kernels_past_shared_memory(dev, G, R, D):
-    """A D past 16384 that is not a power of two stays on the direct route."""
+    """A D past 16384 outside 2^a 3^b 5^c (28672 = 2^12 7) stays on the
+    direct route."""
     assert circconv.route(D) == "direct"
     Z, K = _data(G, R, D, dev, seed=10)
     kext = ops._kext(K)
@@ -180,11 +220,13 @@ def test_fft_kernels_are_bitwise_repeatable(dev, G, R, D):
         assert torch.equal(circconv.unbind_kernel(S, kext), Zh)
 
 
+@pytest.mark.parametrize("D", [2048, 5120])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fft_kernels_give_exact_zeros_for_zero_rows(dev, dtype):
+def test_fft_kernels_give_exact_zeros_for_zero_rows(dev, dtype, D):
     """An all-zero data row (a dead slot's features) adds exactly zero, as
-    in the plain version: its transform holds only the key's rounding."""
-    Z, K = _data(4, 4, 2048, dev, seed=7)
+    in the plain version: its transform holds only the key's rounding.  The
+    mixed-radix one-pass kernels (5120) keep it."""
+    Z, K = _data(4, 4, D, dev, seed=7)
     kext = ops._kext(K)
     Z = Z.to(dtype)
     Z[1] = 0                 # a whole group
@@ -207,12 +249,14 @@ def test_fft_kernels_take_unaligned_views(dev):
                        circconv.bind_superpose_kernel(Z, kext))
 
 
-def test_pallas_codec_makes_no_torch_fft_call(dev, monkeypatch):
+@pytest.mark.parametrize("D", [2048, 5120, 12288])
+def test_pallas_codec_makes_no_torch_fft_call(dev, monkeypatch, D):
     """The backend=pallas path runs the FFT-form kernels, not cuFFT: with
     torch.fft's transforms patched to raise, an encode and a decode and
-    their backward still run on the card, on the FFT route."""
+    their backward still run on the card, on the FFT route (mixed radix at
+    the serving widths 5120 and 12288)."""
     from repro_torch import codecs
-    codec = codecs.build("c3sl:R=4,backend=pallas", D=2048)
+    codec = codecs.build("c3sl:R=4,backend=pallas", D=D)
     params = codec.init(device=dev)
 
     def refuse(*args, **kwargs):
@@ -221,12 +265,12 @@ def test_pallas_codec_makes_no_torch_fft_call(dev, monkeypatch):
     for fn in ("fft", "ifft", "rfft", "irfft"):
         monkeypatch.setattr(torch.fft, fn, refuse)
     circconv.reset_launch_counts()
-    Z = torch.randn(64, 2048, device=dev, requires_grad=True)
+    Z = torch.randn(64, D, device=dev, requires_grad=True)
     payload = codec.encode(params, Z)
     Zhat = codec.decode(params, payload)
     (gz,) = torch.autograd.grad((Zhat * torch.randn_like(Zhat)).sum(), [Z])
     torch.cuda.synchronize()
-    assert payload.shape == (16, 2048) and gz.shape == Z.shape
+    assert payload.shape == (16, D) and gz.shape == Z.shape
     assert bool(torch.isfinite(gz).all())
     assert circconv.ROUTE_LAUNCHES == {("bind_superpose", "fft"): 2,
                                        ("unbind", "fft"): 2,
@@ -236,12 +280,14 @@ def test_pallas_codec_makes_no_torch_fft_call(dev, monkeypatch):
                                        ("unbind", "direct"): 0}
 
 
-def test_pallas_codec_at_the_lm_width_makes_no_torch_fft_call(dev, monkeypatch):
-    """At the LM training path's D = 128 * 4096 the backend=pallas codec
-    runs the four-step kernels, forward and backward, with torch.fft's
-    transforms patched to raise."""
+@pytest.mark.parametrize("D", [524288, 655360])
+def test_pallas_codec_at_the_lm_width_makes_no_torch_fft_call(dev, monkeypatch, D):
+    """At the LM training path's D = 128 * d_model (deepseek-7b's 4096 and
+    qwen2.5-32b's 5120) the backend=pallas codec runs the four-step
+    kernels, forward and backward, with torch.fft's transforms patched to
+    raise; the keys' spectra are made once for the four launches."""
     from repro_torch import codecs
-    codec = codecs.build("c3sl:R=4,backend=pallas", D=524288)
+    codec = codecs.build("c3sl:R=4,backend=pallas", D=D)
     params = codec.init(device=dev)
 
     def refuse(*args, **kwargs):
@@ -250,11 +296,12 @@ def test_pallas_codec_at_the_lm_width_makes_no_torch_fft_call(dev, monkeypatch):
     for fn in ("fft", "ifft", "rfft", "irfft"):
         monkeypatch.setattr(torch.fft, fn, refuse)
     circconv.reset_launch_counts()
-    Z = torch.randn(16, 524288, device=dev, requires_grad=True)
+    Z = torch.randn(16, D, device=dev, requires_grad=True)
     Zhat = codec.decode(params, codec.encode(params, Z))
     (gz,) = torch.autograd.grad((Zhat * Zhat).sum(), [Z])
     torch.cuda.synchronize()
     assert bool(torch.isfinite(gz).all())
+    assert circconv.KEY_SPECTRA_BUILDS == 1
     assert circconv.ROUTE_LAUNCHES[("bind_superpose", "fft4")] == 2
     assert circconv.ROUTE_LAUNCHES[("unbind", "fft4")] == 2
     assert sum(circconv.ROUTE_LAUNCHES.values()) == 4
@@ -288,3 +335,26 @@ def test_execution_mode_on_card(dev):
     c = codecs.build("c3sl:R=2,backend=pallas", D=256)
     assert c.execution_mode(dev) == "cuda-kernel"
     assert c.spec() == "c3sl:R=2,D=256,backend=pallas"
+
+
+def test_fft4_key_spectra_are_kept_and_never_stale(dev):
+    """The four-step kernels' key spectra are made once per key tensor and
+    kept: a second call with the same keys makes none; after an in-place
+    write to the keys the next call makes them anew and agrees with the
+    oracle on the new keys, not the old."""
+    G, R, D = 2, 2, 40960
+    Z, K = _data(G, R, D, dev, seed=16)
+    circconv.reset_launch_counts()
+    S = ops.bind_superpose_pallas(Z, K)
+    ops.bind_superpose_pallas(Z, K)
+    ops.unbind_pallas(S, K)
+    assert circconv.KEY_SPECTRA_BUILDS == 1
+    K.mul_(-0.5)
+    S2 = ops.bind_superpose_pallas(Z, K)
+    torch.cuda.synchronize()
+    assert circconv.KEY_SPECTRA_BUILDS == 2
+    _close(S2, _oracle("bind", Z, K), torch.float32)
+    _close(S2, -0.5 * S.double(), torch.float32)
+    ops.clear_key_caches()
+    assert torch.equal(ops.bind_superpose_pallas(Z, K), S2)
+    assert circconv.KEY_SPECTRA_BUILDS == 3
