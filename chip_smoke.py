@@ -159,6 +159,45 @@ Phases (any failure exits non-zero, and no result line is printed):
    (4, 4, 655360) and none direct; 4 * 655360 * 4 = 10,485,760 wire bytes a
    direction a step; the step time and profile.  No checkpoint (phase 7
    covers it).
+9-12. The LM training path of the other model families, after
+   ``free_cuda()``, each through ``launch.train.run_standard`` as phases 7
+   and 8 (B 16, S 128, ``c3sl:R=4,backend=pallas`` at the superblock
+   midpoint, float32 with TF32 off, random weights from the seed): step-0
+   parity against ``backend=fft`` at phase 7's tolerances (loss, every
+   gradient leaf, the cut SNR), every gradient finite, and both measured
+   against the codec computed in float64 (``ExactCodec``); where the model
+   amplifies float32 rounding so much that ``backend=fft`` itself sits
+   past 1e-4 / 4 of a leaf's max from it (rwkv6-1.6b), the kernels may
+   differ from ``backend=fft`` by 4 times that distance.  3 steps through
+   run_standard (the warm-up), launches counted by route and shape,
+   exactly 2 + 2 a step, all ``"fft4"``; the wire bytes a direction
+   exactly; then the step time (CUDA events, the median of 5 single
+   steps, host included), the idle share (``torch.profiler`` over 2 steps)
+   and the peak memory; for an arch with experts, the MoE aux loss and
+   the share of token copies dropped at step 0 (the kernel run's
+   forward).  No checkpoint.
+   9. ``deepseek-v2-lite-16b`` at full width (d_model 2048, 16 heads of
+      MLA with kv_lora 512, nope 128, rope 64, v 128; 64 routed experts of
+      1408 and 2 shared, top-6, capacity 240; d_ff 10944 in the first
+      dense layer; vocab 102400), its depth cut from 27 layers to the dense
+      layer and 4 MoE superblocks (2.84 B parameters), the codec after
+      superblock 2: D = 262144, G = 4, 4,194,304 wire bytes a direction.
+   10. ``rwkv6-1.6b`` at full width and depth (24 layers, d_model 2048, 32
+      heads of 64, the chunked time-mix): D = 262144, 4,194,304 bytes.
+   11. ``seamless-m4t-large-v2`` at full width and depth: a 24-layer
+      encoder over 1024 frames of 1024, random from the seed (behind the
+      reference driver's zero frames every encoder row is the same, each
+      LayerNorm divides by sqrt(eps) in the backward, and past about 8
+      layers the gradients overflow float32, in both packages), and a
+      24-layer decoder with cross-attention (d_model 1024,
+      LayerNorm, a non-gated MLP of 8192, vocab 256206): D = 131072,
+      2,097,152 bytes.
+   12. ``jamba-1.5-large-398b`` at ``reduced()`` size, labelled so (one
+      full-width superblock holds about 39 B parameters of experts, past
+      one card): the Mamba scan and the hybrid pattern on the card, D =
+      128 * 256 = 32768, 524,288 bytes.
+   ``pixtral-12b`` is not run: its cut at S 128 is D = (1024 + 128) * 5120
+   = 5,898,240, past the four-step route's 2^22 (ROADMAP.md B14).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -226,7 +265,8 @@ FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440),
 # 8 keys a pass B chunk holds at 262144 = 512 x 512, and 18000 = 180 x 100,
 # a divisor split with 4-column tiles
 FFT4_EDGE_SHAPES = [(1, 9, 262144), (2, 3, 18000)]
-LM_SHAPES = [(4, 4, 524288), (4, 4, 655360), (4, 4, 1572864)]
+LM_SHAPES = [(4, 4, 524288), (4, 4, 655360), (4, 4, 1572864),
+             (4, 4, 262144), (4, 4, 131072), (4, 4, 32768)]
 LM_SHAPE = LM_SHAPES[0]
 ORACLE_SHAPES = LM_SHAPES + FFT4_EDGE_SHAPES + [(128, 4, 12288)]
 # the direct kernels, called explicitly at the main-path shapes
@@ -285,7 +325,6 @@ LM_CODEC = "c3sl:R=4,backend=pallas"
 LM_STEPS = 3
 LM_TIMED_STEPS = 3
 LM_PROFILED_STEPS = 2
-LM_WIRE_BYTES = 4 * 524288 * 4   # G rows of D float32, a direction a step
 
 # phase 8, the LM training path at a width that is not a power of two:
 # qwen2.5-32b at full width, depth cut so that float32 params, gradients
@@ -295,7 +334,15 @@ LM_WIRE_BYTES = 4 * 524288 * 4   # G rows of D float32, a direction a step
 QWEN_ARCH = "qwen2.5-32b"
 QWEN_LAYERS = 4
 QWEN_SHAPE = (4, 4, 655360)
-QWEN_WIRE_BYTES = 4 * 655360 * 4
+
+# phases 9-12, the other families' LM training path: (phase, arch, the
+# depth it runs at (None: the arch's own), reduced(), the cut's shape (G =
+# B/R, R, D = S * d_model)); the wire bytes a direction a step are G * D * 4
+FAMILY_RUNS = [(9, "deepseek-v2-lite-16b", 5, False, (4, 4, 262144)),
+               (10, "rwkv6-1.6b", None, False, (4, 4, 262144)),
+               (11, "seamless-m4t-large-v2", None, False, (4, 4, 131072)),
+               (12, "jamba-1.5-large-398b", None, True, (4, 4, 32768))]
+FAMILY_TIMED_STEPS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -702,12 +749,14 @@ def make_setup(model: str, spec: str, dev, net=None):
 
 
 def leaf_rel_err(a, b) -> float:
-    """Largest over leaves of max|a - b| / max|b|."""
+    """Largest over leaves of max|a - b| / max|b|; inf where a leaf of
+    either holds a NaN or an inf."""
     from repro_torch.interop import tree_leaves
     worst = 0.0
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         scale = float(y.abs().max())
-        worst = max(worst, float((x - y).abs().max()) / max(scale, 1e-30))
+        e = float((x - y).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, e if math.isfinite(e) else math.inf)
     return worst
 
 
@@ -1810,11 +1859,15 @@ def step_profile(dev, steps=5) -> dict:
 # phase 7: the LM training path
 # --------------------------------------------------------------------------
 
-def lm_config(arch=LM_ARCH, layers=LM_LAYERS):
+def lm_config(arch=LM_ARCH, layers=LM_LAYERS, small=False):
     """``arch`` at full width (deepseek-7b: d_model 4096, 32 heads of 128,
-    d_ff 11008, vocab 102400), its depth cut to ``layers``."""
-    from repro_torch.configs.base import get_config
-    return dataclasses.replace(get_config(arch), num_layers=layers)
+    d_ff 11008, vocab 102400), its depth cut to ``layers`` (None: the
+    arch's own); ``small`` takes ``reduced()`` instead."""
+    from repro_torch.configs.base import get_config, reduced
+    cfg = get_config(arch)
+    if small:
+        return reduced(cfg)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
 
 
 def lm_args(ckpt_dir, arch=LM_ARCH):
@@ -1828,66 +1881,162 @@ def lm_args(ckpt_dir, arch=LM_ARCH):
         + ([] if ckpt_dir is None else ["--ckpt-dir", str(ckpt_dir)]))
 
 
-def lm_parity(params, cfg, args, dev) -> dict:
+def lm_frontend(cfg, args, dev):
+    """The frontend batch of a run: random frames from the seed (the
+    reference driver's zero stub makes every encoder row identical, and the
+    gradients of a 24-layer encoder overflow float32 behind it, in both
+    packages); None without a frontend."""
+    import torch
+    if not cfg.frontend:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    return torch.randn((args.batch, cfg.frontend_seq, cfg.frontend_dim),
+                       generator=gen, device=dev)
+
+
+def lm_batch(cfg, args, step, dev, frontend=None) -> dict:
+    """Step ``step``'s token batch, with ``frontend`` under "frontend"."""
+    from repro_torch.data.pipeline import SyntheticTokenDataset
+    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
+    batch = data.batch(args.batch, step, device=dev)
+    if frontend is not None:
+        batch["frontend"] = frontend
+    return batch
+
+
+class ExactCodec:
+    """The C3-SL codec's function computed in float64 with torch.fft on
+    float64 copies of the same keys, its decode rounded once to float32:
+    the oracle that the kernels' and ``backend=fft``'s float32 roundings
+    are measured against (autograd runs its backward in float64 too)."""
+
+    def __init__(self, codec, params):
+        import torch
+        self.R, self.D = codec.R, codec.D
+        self.kf = torch.fft.rfft(params["keys"].double(), dim=-1)
+
+    def encode(self, params, Z):
+        import torch
+        z = torch.fft.rfft(Z.double().reshape(-1, self.R, self.D), dim=-1)
+        return torch.fft.irfft((self.kf * z).sum(dim=-2), n=self.D, dim=-1)
+
+    def decode(self, params, payload):
+        import torch
+        prod = self.kf.conj() * torch.fft.rfft(payload, dim=-1)[:, None, :]
+        return torch.fft.irfft(prod, n=self.D, dim=-1).reshape(-1, self.D).float()
+
+
+def leaf_errs(a, b, names) -> list:
+    """(max|a - b| / max|b|, name) per leaf, largest first (inf where a
+    leaf is not finite)."""
+    from repro_torch.interop import tree_leaves
+    out = [(leaf_rel_err([x], [y]), n)
+           for x, y, n in zip(tree_leaves(a), tree_leaves(b), names)]
+    return sorted(out, reverse=True)
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Key paths of a params tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def lm_parity(params, cfg, args, dev, frontend=None) -> dict:
     """Step 0's loss and gradients through the kernels against
     ``backend=fft`` (torch.fft on the card) on the same weights, keys and
-    batch: the loss within 1e-6 relative and every gradient leaf within
-    1e-4 of its max (the control plane's step-0 tolerances), and the cut
-    SNR of both."""
+    batch: the loss within 1e-6 relative, every gradient finite, every
+    gradient leaf within 1e-4 of its max (the control plane's step-0
+    tolerance) and the cut SNR of both.  Both are also measured against
+    the codec computed exactly (``ExactCodec``): where the model amplifies
+    float32 rounding so far that ``backend=fft``'s own gradients sit more
+    than 1e-4 / 4 from the exact codec's (rwkv6-1.6b), the kernels' may
+    differ from ``backend=fft``'s by up to 4 times that distance.  For an
+    arch with experts, the kernel run's forward also gives the MoE aux
+    loss (summed over the layers, as the loss adds it) and the share of
+    token copies past their expert's capacity."""
     import torch
-    from repro_torch.data.pipeline import SyntheticTokenDataset
     from repro_torch.interop import tree_leaves, tree_map
     from repro_torch.launch import train
     from repro_torch.models import lm as lm_lib
-    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
-    batch = data.batch(args.batch, 0, device=dev)
+    from repro_torch.models import moe as moe_lib
+    batch = lm_batch(cfg, args, 0, dev, frontend)
     res = {}
-    for backend in ("pallas", "fft"):
-        codec, cp = train.make_codec(LM_CODEC.replace("pallas", backend),
-                                     args.seq * cfg.d_model, max_R=args.batch,
-                                     device=dev)
+    routing = []
+    for backend in ("pallas", "fft", "exact"):
+        codec, cp = train.make_codec(
+            LM_CODEC.replace("pallas", "fft" if backend == "exact" else backend),
+            args.seq * cfg.d_model, max_R=args.batch, device=dev)
+        if backend == "exact":
+            codec = ExactCodec(codec, cp)
         tp = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = lm_lib.lm_loss(tp, batch, cfg, codec=codec,
-                                       codec_params=cp, with_metrics=True)
+        # the forward's routing only: the backward's recomputation is not logged
+        moe_lib.ROUTING_LOG = routing if backend == "pallas" else None
+        try:
+            loss, metrics = lm_lib.lm_loss(tp, batch, cfg, codec=codec,
+                                           codec_params=cp, with_metrics=True)
+        finally:
+            moe_lib.ROUTING_LOG = None
         grads = torch.autograd.grad(loss, tree_leaves(tp))
         res[backend] = (float(loss.detach()), float(metrics["cut_snr"].detach()),
                         grads)
         del tp, loss, metrics
-    (lk, sk, gk), (lf, sf, gf) = res["pallas"], res["fft"]
+    (lk, sk, gk), (lf, sf, gf), (lx, sx, gx) = res["pallas"], res["fft"], res["exact"]
+    names = leaf_names(params)
     rel = abs(lk - lf) / abs(lf)
-    check(rel <= 1e-6, f"lm step-0 loss kernels {lk} vs fft {lf}")
     gerr = leaf_rel_err(gk, gf)
-    check(gerr <= 1e-4, f"lm step-0 grads kernels vs fft: {gerr}")
-    return {"loss_kernel": lk, "loss_fft": lf, "loss_rel_err": rel,
-            "grad_leaf_rel_err": gerr, "cut_snr_kernel": sk, "cut_snr_fft": sf}
+    k_x, f_x = leaf_errs(gk, gx, names), leaf_errs(gf, gx, names)
+    grad_tol = max(1e-4, 4 * f_x[0][0])
+    out = {"loss_kernel": lk, "loss_fft": lf, "loss_exact": lx, "loss_rel_err": rel,
+           "grad_leaf_rel_err": gerr, "grad_tol": grad_tol,
+           "kernel_vs_exact": k_x[0][0], "fft_vs_exact": f_x[0][0],
+           "worst_leaves": {"kernel_vs_fft": leaf_errs(gk, gf, names)[:3],
+                            "kernel_vs_exact": k_x[:3], "fft_vs_exact": f_x[:3]},
+           "cut_snr_kernel": sk, "cut_snr_fft": sf, "cut_snr_exact": sx}
+    check(rel <= 1e-6, f"lm step-0 loss kernels {lk} vs fft {lf}")
+    check(all(bool(torch.isfinite(g).all()) for g in (*gk, *gf, *gx)),
+          f"lm step-0 gradients not finite: {out['worst_leaves']}")
+    check(gerr <= grad_tol, f"lm step-0 grads kernels vs fft: {gerr} "
+          f"(limit {grad_tol}; {out['worst_leaves']})")
+    if cfg.num_experts:
+        check(len(routing) == cfg.num_superblocks * sum(
+            k == "moe" for layer in cfg.block_pattern for k in layer),
+            f"lm step-0 routing logged {len(routing)} MoE layers")
+        kept = sum(int(k) for k, _, _ in routing)
+        copies = sum(n for _, n, _ in routing)
+        out.update(moe_layers=len(routing),
+                   moe_aux=sum(float(a) for _, _, a in routing),
+                   moe_dropped_share=1 - kept / copies)
+    return out
 
 
-def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
-                wire_bytes=LM_WIRE_BYTES, ckpt=True) -> dict:
-    """``arch`` cut to ``layers``: (a) step-0 parity; (b)
+def lm_training(dev, cfg, shape, *, ckpt=False, timed_steps=LM_TIMED_STEPS,
+                label="full width") -> dict:
+    """``cfg`` (``label`` says its size): (a) step-0 parity; (b)
     ``launch.train.run_standard`` for LM_STEPS steps from the same weights,
     launch counts reset just before and read just after: finite losses,
     2 + 2 circconv launches a step, all on the four-step route at
-    ``shape``, none direct, ``wire_bytes`` a direction a step; (c) with
-    ``ckpt``, the checkpoint it wrote (``--ckpt-dir``) restored bitwise,
-    then deleted; (d) the step time (CUDA events around single steps, the
-    median of LM_TIMED_STEPS, host included) and a ``torch.profiler``
-    breakdown over LM_PROFILED_STEPS steps: device time, idle share, the
-    codec's share."""
+    ``shape`` (G, R, D), none direct, G * D * 4 wire bytes a direction a
+    step; (c) with ``ckpt``, the checkpoint it wrote (``--ckpt-dir``)
+    restored bitwise, then deleted; (d) the step time (CUDA events around
+    single steps, the median of ``timed_steps``, host included) and a
+    ``torch.profiler`` breakdown over LM_PROFILED_STEPS steps: device time,
+    idle share, the codec's share."""
     import shutil
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.data.pipeline import SyntheticTokenDataset
     from repro_torch.interop import tree_leaves
     from repro_torch.kernels import circconv
     from repro_torch.launch import train
     from repro_torch.models import lm as lm_lib
     from repro_torch.transport import split_comm_bytes
 
-    cfg = lm_config(arch, layers)
+    arch = cfg.name
+    G, R, D = shape
+    wire_bytes = G * D * 4
     ckpt_dir = OUT_DIR / "lm_ckpt" if ckpt else None
     if ckpt:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1896,7 +2045,8 @@ def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
     # so that the parity runs on the weights the run starts from
     params = lm_lib.init_lm_params(args.seed, cfg, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    parity = lm_parity(params, cfg, args, dev)
+    frontend = lm_frontend(cfg, args, dev)
+    parity = lm_parity(params, cfg, args, dev, frontend)
     free_cuda()
 
     out = {}
@@ -1904,7 +2054,8 @@ def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
     torch.cuda.synchronize()
     circconv.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = train.run_standard(args, cfg, params=params, out=out)
+    losses = train.run_standard(args, cfg, params=params, out=out,
+                                frontend=frontend)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts, routes, by_kernel = (dict(circconv.LAUNCHES), route_counts(),
@@ -1913,11 +2064,10 @@ def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
               for k, n in circconv.SHAPE_LAUNCHES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(len(losses) == LM_STEPS and all(map(math.isfinite, losses)),
-          f"lm training losses {losses}")
+          f"lm training {arch} losses {losses}")
     want = {"bind_superpose": 2 * LM_STEPS, "unbind": 2 * LM_STEPS}
-    check(counts == want, f"lm training launches {counts}, want {want}")
+    check(counts == want, f"lm training {arch} launches {counts}, want {want}")
     check_fft_route(routes, 2 * LM_STEPS, f"lm training {arch}", route="fft4")
-    G, R, D = shape
     want_shapes = {f"{k}/{G}x{R}x{D}": 2 * LM_STEPS
                    for k in ("bind_superpose", "unbind")}
     check(shapes == want_shapes, f"lm training shapes {shapes}, want {want_shapes}")
@@ -1945,14 +2095,13 @@ def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
         free_cuda()
 
     step = out["step_fns"][None]          # the static codec's one callable
-    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
-    batch = data.batch(args.batch, LM_STEPS, device=dev)
+    batch = lm_batch(cfg, args, LM_STEPS, dev, frontend)
     probe = torch.zeros((), dtype=torch.float32, device=dev)
 
     def one():
         step(out["params"], out["opt_state"], batch, probe)
 
-    step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS, hide_host=False)
+    step_ms = cuda_ms(one, warmup=0, calls=1, reps=timed_steps, hide_host=False)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(LM_PROFILED_STEPS):
@@ -1969,29 +2118,38 @@ def lm_training(dev, arch=LM_ARCH, layers=LM_LAYERS, shape=LM_SHAPE,
         "circconv_ms_per_step": circ, "circconv_share": circ / busy,
         "top": [{"name": n[:90], "ms_per_step": t, "calls_per_step": c}
                 for n, t, c in rows[:10]]}
-    del out, step, batch
+    del out, step, batch, frontend
     free_cuda()
-    return {"arch": arch, "layers": layers, "params": n_params, "shape": list(shape),
+    return {"arch": arch, "label": label, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers, "cut_after": cfg.num_superblocks // 2,
+            "params": n_params, "shape": list(shape),
             "batch": LM_BATCH, "seq": LM_SEQ, "codec": LM_CODEC,
             "parity": parity, "losses": losses, "launches": counts,
             "route_launches": routes, "record_launches": by_kernel,
             "shape_launches": shapes,
             "wire_bytes": [wire_fwd, wire_bwd], "run_s": run_s,
             "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes,
-            "restore_s": restore_s, "step_ms": step_ms, "profile": prof_out}
+            "restore_s": restore_s, "step_ms": step_ms,
+            "timed_steps": timed_steps, "profile": prof_out}
 
 
 def print_lm(card, lm):
-    """Phase 7's and 8's lines."""
+    """Phase 7's to 12's lines."""
     par, lp = lm["parity"], lm["profile"]
-    print(f"lm training {lm['arch']} full width, {lm['layers']} layers (cut after "
-          f"superblock {lm['layers'] // 2}), {lm['params'] / 1e9:.3f} B params, "
+    depth = f"{lm['layers']} layers" + (
+        f" + a {lm['encoder_layers']}-layer encoder" if lm["encoder_layers"] else "")
+    print(f"lm training {lm['arch']} {lm['label']}, {depth} (cut after "
+          f"superblock {lm['cut_after']}), {lm['params'] / 1e9:.3f} B params, "
           f"B {LM_BATCH} S {LM_SEQ}, {LM_CODEC} (D {lm['shape'][2]}): step-0 "
           f"kernels vs backend=fft loss {par['loss_kernel']:.6f} vs "
           f"{par['loss_fft']:.6f} (rel err {par['loss_rel_err']:.3g}), grad leaf "
           f"rel err {par['grad_leaf_rel_err']:.3g}, cut SNR "
           f"{par['cut_snr_kernel']:.4f} dB (fft {par['cut_snr_fft']:.4f})",
           flush=True)
+    if "moe_aux" in par:
+        print(f"lm training {lm['arch']} step 0 MoE: aux loss {par['moe_aux']:.6f} "
+              f"over {par['moe_layers']} layers, {par['moe_dropped_share']:.4%} of "
+              f"token copies dropped past capacity", flush=True)
     print(f"lm training run_standard: {LM_STEPS} steps, losses "
           f"{[round(v, 4) for v in lm['losses']]}, launches {lm['launches']}, "
           f"routes {lm['route_launches']}, by shape {lm['shape_launches']}, wire "
@@ -2000,14 +2158,16 @@ def print_lm(card, lm):
               "no checkpoint" if lm["ckpt_bytes"] is None else
               f"checkpoint {lm['ckpt_bytes']:,d} B restored bitwise in "
               f"{lm['restore_s']:.1f} s"), flush=True)
-    print(f"time [{card}] lm train step ({lm['arch']} x{lm['layers']} layers, B "
+    print(f"time [{card}] lm train step ({lm['arch']} {lm['label']} x{depth}, B "
           f"{LM_BATCH} S {LM_SEQ}, {LM_CODEC}): {lm['step_ms']:.1f} ms (median "
-          f"of {LM_TIMED_STEPS}, host included)", flush=True)
+          f"of {lm['timed_steps']}, host included), peak {lm['peak_gb']:.1f} GB",
+          flush=True)
     if lp is None:
         print(f"profile [{card}] lm train step: the profiler saw no device time "
               "(not measured)")
     else:
-        print(f"profile [{card}] lm train step: device {lp['device_ms_per_step']:.1f} "
+        print(f"profile [{card}] lm train step ({lm['arch']}): device "
+              f"{lp['device_ms_per_step']:.1f} "
               f"ms of {lp['wall_ms_per_step']:.1f} ms wall (idle "
               f"{lp['idle_share_profiled']:.3f} profiled, "
               f"{lp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step); "
@@ -2250,14 +2410,23 @@ def main() -> int:
                   f"  {r['name']}")
 
     free_cuda()
-    lm = lm_training(dev)
+    lm = lm_training(dev, lm_config(), LM_SHAPE, ckpt=True)
     lap("lm_training")
     print_lm(card, lm)
     free_cuda()
-    qwen = lm_training(dev, QWEN_ARCH, QWEN_LAYERS, QWEN_SHAPE, QWEN_WIRE_BYTES,
-                       ckpt=False)
+    qwen = lm_training(dev, lm_config(QWEN_ARCH, QWEN_LAYERS), QWEN_SHAPE)
     lap("lm_training_qwen")
     print_lm(card, qwen)
+    families = {}
+    for phase, arch, layers, small, shape in FAMILY_RUNS:
+        free_cuda()
+        families[arch] = lm_training(
+            dev, lm_config(arch, layers, small), shape,
+            timed_steps=FAMILY_TIMED_STEPS,
+            label="REDUCED (reduced())" if small else "full width")
+        lap(f"lm_training_{arch}")
+        print(f"phase {phase}:", flush=True)
+        print_lm(card, families[arch])
 
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
@@ -2306,19 +2475,20 @@ def main() -> int:
     # the circconv kernels' launches in each main-path run, counted by the
     # run and read just after it (record_launches): the one-pass kernels'
     # in the VGG-16 main run and the control plane's, the direct ones' in
-    # the main run, the four-step ones' in the two LM training runs
-    # (deepseek-7b, qwen2.5-32b), the mixed-radix one-pass ones' over every
+    # the main run, the four-step ones' in the six LM training runs
+    # (phases 7-12), the mixed-radix one-pass ones' over every
     # run; every width these runs take is a power of two or past shared
     # memory, so that sum must be 0
     def counted(name, runs):
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
-    path_runs = [main_run, *other_runs, rk, rg, rq, cp, lm, qwen]
+    lm_runs = [lm, qwen, *families.values()]
+    path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs]
     launches = {name: counted(name, runs) for name, runs in (
         ("bind_superpose", [main_run, cp]), ("unbind", [main_run, cp]),
         ("bind_superpose_direct", [main_run]), ("unbind_direct", [main_run]),
         ("bind_superpose_mixed", path_runs), ("unbind_mixed", path_runs),
-        ("bind_superpose_fft4", [lm, qwen]), ("unbind_fft4", [lm, qwen]))}
+        ("bind_superpose_fft4", lm_runs), ("unbind_fft4", lm_runs))}
     check(launches["bind_superpose_mixed"] == launches["unbind_mixed"] == 0,
           f"mixed-radix one-pass launches on the main path: {launches}")
     launches.update({"paged_attention": rk["launches"]["paged_attention"],
@@ -2386,7 +2556,7 @@ def main() -> int:
                           "masked_decode_bitwise": cp_bits, "table2": cp_t2,
                           "bnpp_resnet50": cp_bn},
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
-        "lm_training_qwen": qwen,
+        "lm_training_qwen": qwen, "lm_training_families": families,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

@@ -17,6 +17,17 @@ weights are random, drawn from ``--seed`` on the device).
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --steps 3 --batch 16 --seq 128 --codec "c3sl:R=4,backend=pallas"
 
+    # any of the ten registered archs trains: MoE + MLA, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 2 \\
+        --arch deepseek-v2-lite-16b --device cpu --codec "c3sl:R=4"
+
+A model with a modality frontend gets the reference driver's stub batch:
+zero embeddings (B, frontend_seq, frontend_dim) under "frontend", on the
+run's device, unless the caller passes its own to ``run_standard``.  (The
+zero stub makes every encoder row identical, so each LayerNorm divides by
+sqrt(eps) in the backward: past about 8 encoder layers the gradients
+overflow float32, in the reference as here.)
+
 The step updates params and the optimizer state in place (the reference
 returns new trees; the numbers are the same), so a full-width step holds
 four copies of the params (params, gradients, two moments) and not eight.
@@ -102,11 +113,13 @@ def _to_device(erasure, device):
     return {k: torch.from_numpy(v).to(device) for k, v in erasure.items()}
 
 
-def run_standard(args, cfg, *, params=None, codec_params=None, out=None):
+def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
+                 frontend=None):
     """The single-program training loop.  Returns the per-step losses.
 
     ``params`` and ``codec_params`` replace the seeded inits (the tests
-    start both packages from the same weights and keys).  A dict ``out``
+    start both packages from the same weights and keys), ``frontend`` the
+    zero frontend batch.  A dict ``out``
     receives the final ``params`` and ``opt_state``, the step table and the
     codec, for a caller that goes on from there."""
     if getattr(args, "sanitize", False):
@@ -155,10 +168,15 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None):
     wire_fwd_total = wire_bwd_total = 0
     fault_skipped = 0
     probe0 = torch.zeros((), dtype=torch.float32, device=device)
+    if cfg.frontend and frontend is None:
+        frontend = torch.zeros((args.batch, cfg.frontend_seq, cfg.frontend_dim),
+                               device=device)
     tokens_per_step = args.batch * args.seq
     step_flops = 6.0 * cfg.active_param_count() * tokens_per_step
     for step in range(args.steps):
         batch = next(it)
+        if frontend is not None:
+            batch["frontend"] = frontend
         erasure = fault_info = None
         if fault_link is not None:
             try:

@@ -32,8 +32,10 @@ per chunk.  The reference computes this attention in plain jnp with no
 Pallas kernel, so the port runs the same plain matmul and softmax as the
 serving path's ``_sdpa``.
 
-MLA and cross-attention are not ported yet: they come with ROADMAP.md
-slice 4, part 2.
+Training-time MLA (``apply_mla``) and cross-attention
+(``apply_cross_attention``) come with the other model families; MLA's
+decode and prefill over its compressed cache come with ROADMAP.md slice 4,
+part 3.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -158,6 +160,21 @@ def apply_gqa(p, x, positions, *, num_heads, num_kv_heads, head_dim,
     q = apply_rope(q, positions, rotary_dim, rope_theta)
     k = apply_rope(k, positions, rotary_dim, rope_theta)
     return _sdpa_causal(q, k, v, sliding_window) @ p["w_o"]
+
+
+def apply_cross_attention(p, x, memory, *, num_heads, num_kv_heads, head_dim):
+    """x (B,Sq,D) attends to memory (B,Sk,D); no mask, no rope."""
+    B, Sq, _ = x.shape
+    Sk = memory.shape[1]
+    q = x @ p["w_q"]
+    k = memory @ p["w_k"]
+    v = memory @ p["w_v"]
+    if "b_q" in p:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=x.device)
+    return _sdpa(q.reshape(B, Sq, num_heads, head_dim),
+                 k.reshape(B, Sk, num_kv_heads, head_dim),
+                 v.reshape(B, Sk, num_kv_heads, head_dim), mask) @ p["w_o"]
 
 
 def init_gqa_cache(batch: int, length: int, num_kv_heads: int, head_dim: int,
@@ -372,3 +389,56 @@ def apply_gqa_prefill(p, x, cache, pos, valid, *, num_heads, num_kv_heads,
     else:
         new = {"k": k, "v": v}
     return y, _write_chunk(cache, new, slot, valid, T, pages=pages)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention), training forward
+# ---------------------------------------------------------------------------
+
+def init_mla(rng: torch.Generator, d_model: int, num_heads: int, *,
+             kv_lora_rank: int, qk_nope_dim: int, qk_rope_dim: int,
+             v_head_dim: int, dtype=torch.float32, lead: tuple = ()):
+    H = num_heads
+    return {
+        "w_q": dense_init(rng, d_model, H * (qk_nope_dim + qk_rope_dim), dtype,
+                          lead=lead),
+        "w_dkv": dense_init(rng, d_model, kv_lora_rank, dtype, lead=lead),
+        "kv_norm": torch.ones((*lead, kv_lora_rank), dtype=dtype,
+                              device=rng.device),
+        "w_uk": dense_init(rng, kv_lora_rank, H * qk_nope_dim, dtype, lead=lead),
+        "w_uv": dense_init(rng, kv_lora_rank, H * v_head_dim, dtype, lead=lead),
+        "w_kpe": dense_init(rng, d_model, qk_rope_dim, dtype, lead=lead),
+        "w_o": dense_init(rng, H * v_head_dim, d_model, dtype, lead=lead),
+    }
+
+
+def _mla_qc(p, x, positions, *, num_heads, qk_nope_dim, qk_rope_dim, rope_theta):
+    """(q_nope, q_rope, c_kv, k_pe): the per-head query halves, the
+    normalised latent (B,S,L) and the shared rope key (B,S,rope)."""
+    B, S, _ = x.shape
+    q = (x @ p["w_q"]).reshape(B, S, num_heads, qk_nope_dim + qk_rope_dim)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, qk_rope_dim, rope_theta)
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])
+    k_pe = apply_rope((x @ p["w_kpe"])[:, :, None, :], positions,
+                      qk_rope_dim, rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_pe
+
+
+def apply_mla(p, x, positions, *, num_heads, kv_lora_rank, qk_nope_dim,
+              qk_rope_dim, v_head_dim, rope_theta=10000.0, sliding_window=None):
+    """Training-time MLA over the whole sequence: the rope key, shared by
+    the heads, is concatenated to each head's key so that the concatenated
+    score is the MLA score, through the causal SDPA (scaled by the query
+    head dim, qk_nope_dim + qk_rope_dim, as the reference)."""
+    B, S, _ = x.shape
+    H = num_heads
+    q_nope, q_rope, c_kv, k_pe = _mla_qc(
+        p, x, positions, num_heads=H, qk_nope_dim=qk_nope_dim,
+        qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, v_head_dim)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, qk_rope_dim)],
+                      dim=-1)
+    return _sdpa_causal(q_cat, k_cat, v, sliding_window) @ p["w_o"]

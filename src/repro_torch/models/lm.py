@@ -1,8 +1,8 @@
-"""The causal LM: params, the training forward and loss, and the serving
-entry points (decode cache, decode step, chunked prefill).
+"""The LM (causal, VLM and encoder-decoder): params, the training forward
+and loss, and the serving entry points (decode cache, decode step, chunked
+prefill).
 
-Port of ``repro/models/lm.py`` for decoder-only models built of ``attn``
-and ``mlp`` sublayers (e.g. ``deepseek-7b``).  Params and caches keep the
+Port of ``repro/models/lm.py``.  Params and caches keep the
 reference's trees (stacked leaves with a leading superblock axis, dense
 weights ``(d_in, d_out)`` applied as ``x @ w``), so reference trees carry
 across one to one through ``repro_torch.interop``.
@@ -20,12 +20,22 @@ Caches are written IN PLACE: ``decode_step`` and ``prefill_chunk`` return
 the cache dict they were given.  Entry points run on the card unless the
 caller passes ``device="cpu"`` (or CPU tensors).
 
-Not ported yet: encoder-decoder models, modality frontends and
-``first_dense_layers`` (ROADMAP.md slice 4, part 2), and speculative
-``verify_chunk`` (slice 5, serving II).
+Training (``lm_forward``, ``lm_loss``) takes every registered arch: the
+MoE/MLA/Mamba/RWKV sublayers, the ``first_dense_layers`` superblock, the
+VLM frontend (patch embeddings projected and put in front of the text;
+their label positions padded with -1) and the encoder-decoder models (the
+frontend frames through an ``ENC_PATTERN`` encoder whose output every
+``cross`` sublayer reads).  Modality frontends are stubs, as in the
+reference: batches carry precomputed embeddings under "frontend".
+
+Serving (``check_servable``) covers decoder-only models of ``attn`` and
+``mlp`` sublayers; the other kinds, encoder-decoder models, frontends and
+``first_dense_layers`` come with ROADMAP.md slice 4, part 3, and
+speculative ``verify_chunk`` with slice 5 (serving II).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -39,18 +49,22 @@ from repro_torch.models.stack import _apply_norm, _init_norm
 from repro_torch.transport.link import roundtrip
 
 
-def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for model features outside this slice."""
+ENC_PATTERN = (("attn", "mlp"),)
+
+
+def check_servable(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` for model features the serving entry
+    points do not cover yet (they come with the next slice)."""
     for what, on in (("encoder-decoder models", cfg.is_encdec),
                      ("modality frontends", bool(cfg.frontend)),
                      ("first_dense_layers", bool(cfg.first_dense_layers))):
         if on:
             raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet: they come with "
-                f"ROADMAP.md slice 4, part 2")
+                f"{cfg.name}: serving {what} is not ported yet: it comes "
+                f"with {stack_lib.SERVING_SLICE}")
     for layer in cfg.block_pattern:
         for kind in layer:
-            stack_lib._check_kind(kind)
+            stack_lib.check_servable_kind(kind)
 
 
 def _generator(rng, device) -> torch.Generator:
@@ -64,7 +78,6 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
     seed (a generator on ``device`` is made from it, so the weights are
     drawn on the card by default) or a ``torch.Generator``, whose device
     the weights are drawn on."""
-    check_supported(cfg)
     gen = _generator(rng, device)
     p: dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
@@ -72,6 +85,13 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         "final_norm": _init_norm(cfg, dtype, device=gen.device),
         "head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype),
     }
+    if cfg.first_dense_layers:
+        p["first"] = stack_lib.init_superblock(gen, cfg, dtype, dense_mlp=True)
+    if cfg.frontend:
+        p["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model, dtype)
+    if cfg.is_encdec:
+        p["encoder"] = {"stack": stack_lib.init_stack(gen, _encoder_cfg(cfg), dtype),
+                        "norm": _init_norm(cfg, dtype, device=gen.device)}
     return p
 
 
@@ -79,12 +99,33 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
 # forward (training)
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg: ModelConfig, batch):
-    """Token embedding.  Returns (h (B,S,d), positions (B,S))."""
-    h = params["embed"][batch["tokens"].long()]
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, block_pattern=ENC_PATTERN,
+                               num_layers=cfg.encoder_layers,
+                               first_dense_layers=0)
+
+
+def _positions(h):
     B, S = h.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-    return h, positions
+    return torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Token (+ VLM frontend) embedding.  Returns (h (B,S,d), positions
+    (B,S)); a VLM's S is frontend_seq + the text's."""
+    h = params["embed"][batch["tokens"].long()]
+    if cfg.frontend and not cfg.is_encdec:
+        fe = batch["frontend"] @ params["frontend_proj"]
+        h = torch.cat([fe.to(h.dtype), h], dim=1)
+    return h, _positions(h)
+
+
+def _run_encoder(params, cfg: ModelConfig, frontend_emb, remat=True):
+    """The encoder over the frontend frames: (B, frontend_seq, d)."""
+    h = frontend_emb @ params["frontend_proj"]
+    h, _ = stack_lib.apply_stack(params["encoder"]["stack"], _encoder_cfg(cfg),
+                                 h, _positions(h), remat=remat)
+    return _apply_norm(cfg, params["encoder"]["norm"], h)
 
 
 def _split_stacked(stacked, n_front: int):
@@ -110,18 +151,26 @@ def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
     gradient-retrieval SNR in dB).  ``erasure`` (``{"fwd": keep[, "bwd":
     keep]}``, masks on the payload's device) injects cut-payload loss.
     See ``repro_torch.transport.link.roundtrip``."""
-    check_supported(cfg)
     if sliding_window is None:
         sliding_window = cfg.sliding_window
+    memory = None
+    if cfg.is_encdec:
+        memory = _run_encoder(params, cfg, batch["frontend"], remat=remat)
     h, positions = _embed_inputs(params, cfg, batch)
+    aux = 0.0
+    if cfg.first_dense_layers:
+        h, aux = stack_lib.apply_superblock(params["first"], cfg, h, positions,
+                                            memory=memory,
+                                            sliding_window=sliding_window)
 
     def run(stacked, h):
-        return stack_lib.apply_stack(stacked, cfg, h, positions,
+        return stack_lib.apply_stack(stacked, cfg, h, positions, memory=memory,
                                      sliding_window=sliding_window, remat=remat)
 
     metrics = {}
     if codec is None:
-        h, aux = run(params["stack"], h)
+        h, a = run(params["stack"], h)
+        aux = aux + a
     else:
         front, back = _split_stacked(params["stack"], cfg.num_superblocks // 2)
         h, a1 = run(front, h)
@@ -135,7 +184,7 @@ def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
             Zhat = roundtrip(codec, codec_params, Zf, bwd_probe=bwd_probe,
                              erasure=erasure)
         h, a2 = run(back, Zhat.reshape(B, S, d))
-        aux = a1 + a2
+        aux = aux + a1 + a2
     if last_only:
         h = h[:, -1:, :]
     h = _apply_norm(cfg, params["final_norm"], h)
@@ -148,15 +197,20 @@ def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
 def lm_loss(params, batch, cfg: ModelConfig, *, codec=None, codec_params=None,
             sliding_window=None, remat=True, with_metrics=False,
             bwd_probe=None, erasure=None):
-    """Mean next-token CE (+ the aux loss, 0 for the ported kinds); labels
-    == -1 are masked.  ``with_metrics=True`` returns (loss, metrics) with
-    the cut-layer ``cut_snr`` (see :func:`lm_forward`)."""
+    """Mean next-token CE (+ ``aux_loss_weight`` times the MoE aux loss);
+    labels == -1 are masked (a VLM's frontend positions are padded so).
+    ``with_metrics=True`` returns (loss, metrics) with the cut-layer
+    ``cut_snr`` (see :func:`lm_forward`)."""
     out = lm_forward(params, batch, cfg, codec=codec, codec_params=codec_params,
                      sliding_window=sliding_window, remat=remat,
                      with_metrics=with_metrics, bwd_probe=bwd_probe,
                      erasure=erasure)
     logits, aux = out[0], out[1]
     labels = batch["labels"]
+    if cfg.frontend and not cfg.is_encdec:
+        pad = torch.full((labels.shape[0], cfg.frontend_seq), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     ce = softmax_cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
     loss = ce + cfg.aux_loss_weight * aux
     if with_metrics:
@@ -175,7 +229,7 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
     under "pages" (full-length caches) and "pages_swa" (sliding-window
     rings): int32 (B, P) tensors of physical page ids.  ``device``
     defaults to the params' device."""
-    check_supported(cfg)
+    check_servable(cfg)
     if device is None:
         device = params["embed"].device
     cache: dict[str, Any] = {
@@ -206,6 +260,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     ``kv_read="kernel"`` routes the paged GQA reads through the CUDA
     paged-attention kernel.
     """
+    check_servable(cfg)
     h = params["embed"][tokens.long()]
     kw = dict(paged=paged, pages=cache.get("pages"),
               pages_swa=cache.get("pages_swa"), live=live, kv_read=kv_read)
@@ -248,6 +303,7 @@ def chunk_forward(params, cache, tokens, pos, cfg: ModelConfig, *,
     entered the codec (None without one).  With a codec the features are
     grouped PER POSITION across slots (the ``sequence_group_encode`` layout
     (C,B,d)); non-valid positions contribute exact zeros."""
+    check_servable(cfg)
     B, C = tokens.shape
     if valid is None:
         valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)

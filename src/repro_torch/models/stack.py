@@ -1,11 +1,11 @@
-"""Superblock layer-stack engine (the ``attn`` and ``mlp`` kinds).
+"""Superblock layer-stack engine.
 
-Port of ``repro/models/stack.py`` for the training forward and for serving.
-The layer stack is ``num_superblocks`` repetitions of
-``cfg.block_pattern``; one superblock's params are a flat dict keyed
-"l{layer}_{idx}_{kind}", and the stack keeps every leaf stacked with a
-leading superblock axis, exactly as the reference's trees, so they carry
-across one to one.  Every sublayer is pre-norm residual: h = h + f(norm(h)).
+Port of ``repro/models/stack.py``.  The layer stack is ``num_superblocks``
+repetitions of ``cfg.block_pattern``; one superblock's params are a flat
+dict keyed "l{layer}_{idx}_{kind}", and the stack keeps every leaf stacked
+with a leading superblock axis, exactly as the reference's trees, so they
+carry across one to one.  Every sublayer is pre-norm residual:
+h = h + f(norm(h)).
 
 The reference's ``lax.scan`` over superblocks becomes a Python loop over
 the views ``leaf[i]`` of the stacked leaves; cache writes into those views
@@ -14,8 +14,11 @@ reference's ``jax.checkpoint`` of the scan body) recomputes each
 superblock in the backward through ``torch.utils.checkpoint``: it changes
 memory, not numbers.
 
-Other sublayer kinds (mla, moe, mamba, rwkv_tm, rwkv_cm, cross) come with
-ROADMAP.md slice 4, part 2, and raise ``NotImplementedError`` here.
+Every sublayer kind trains (``TRAIN_KINDS``: attn, mla, mlp, moe, mamba,
+rwkv_tm, rwkv_cm, cross).  Serving (the decode cache, decode and chunked
+prefill) covers ``SERVE_KINDS`` (attn, mlp); the other kinds' decode and
+prefill come with ROADMAP.md slice 4, part 3, and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -24,19 +27,24 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SUBLAYER_KINDS, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
 
-PORTED_KINDS = ("attn", "mlp")
+TRAIN_KINDS = SUBLAYER_KINDS
+SERVE_KINDS = ("attn", "mlp")
+SERVING_SLICE = "ROADMAP.md slice 4, part 3"
 
 
-def _check_kind(kind: str):
-    if kind not in PORTED_KINDS:
+def check_servable_kind(kind: str):
+    if kind not in SERVE_KINDS:
         raise NotImplementedError(
-            f"sublayer kind {kind!r} is not ported yet: it comes with "
-            f"ROADMAP.md slice 4, part 2; the port trains and serves "
-            f"{PORTED_KINDS}")
+            f"decode and prefill of sublayer kind {kind!r} are not ported "
+            f"yet: they come with {SERVING_SLICE}; the port serves "
+            f"{SERVE_KINDS} (and trains {TRAIN_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -57,26 +65,51 @@ def _apply_norm(cfg: ModelConfig, p, x):
 
 
 def init_sublayer(rng: torch.Generator, kind: str, cfg: ModelConfig, dtype, *,
-                  lead: tuple = ()):
+                  dense_mlp: bool = False, lead: tuple = ()):
     """Params for one sublayer, including its pre-norm; ``lead`` prepends
-    stacked axes to every leaf."""
-    _check_kind(kind)
+    stacked axes to every leaf; ``dense_mlp`` makes a ``moe`` sublayer a
+    dense MLP of ``d_ff`` (the ``first_dense_layers`` superblock)."""
     p: dict[str, Any] = {"norm": _init_norm(cfg, dtype, lead=lead,
                                             device=rng.device)}
-    if kind == "attn":
+    if kind in ("attn", "cross"):
         p.update(attn_lib.init_gqa(rng, cfg.d_model, cfg.num_heads,
                                    cfg.num_kv_heads, cfg.head_dim_,
                                    cfg.qkv_bias, dtype, lead=lead))
-    else:
+    elif kind == "mla":
+        p.update(attn_lib.init_mla(rng, cfg.d_model, cfg.num_heads,
+                                   kv_lora_rank=cfg.kv_lora_rank,
+                                   qk_nope_dim=cfg.qk_nope_dim,
+                                   qk_rope_dim=cfg.qk_rope_dim,
+                                   v_head_dim=cfg.v_head_dim, dtype=dtype,
+                                   lead=lead))
+    elif kind == "mlp" or (kind == "moe" and dense_mlp):
         p.update(init_mlp(rng, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
                           lead=lead))
+    elif kind == "moe":
+        p.update(moe_lib.init_moe(rng, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                                  cfg.num_experts,
+                                  num_shared_experts=cfg.num_shared_experts,
+                                  dtype=dtype, lead=lead))
+    elif kind == "mamba":
+        p.update(mamba_lib.init_mamba(rng, cfg.d_model, cfg.d_inner,
+                                      d_state=cfg.d_state, d_conv=cfg.d_conv,
+                                      dtype=dtype, lead=lead))
+    elif kind == "rwkv_tm":
+        p.update(rwkv_lib.init_rwkv_timemix(rng, cfg.d_model, cfg.num_heads,
+                                            dtype=dtype, lead=lead))
+    elif kind == "rwkv_cm":
+        p.update(rwkv_lib.init_rwkv_channelmix(rng, cfg.d_model, cfg.d_ff,
+                                               dtype=dtype, lead=lead))
+    else:
+        raise ValueError(kind)
     return p
 
 
 def init_superblock(rng: torch.Generator, cfg: ModelConfig, dtype, *,
-                    pattern=None, lead: tuple = ()):
+                    pattern=None, dense_mlp: bool = False, lead: tuple = ()):
     pattern = pattern or cfg.block_pattern
-    return {f"l{li}_{si}_{kind}": init_sublayer(rng, kind, cfg, dtype, lead=lead)
+    return {f"l{li}_{si}_{kind}": init_sublayer(rng, kind, cfg, dtype,
+                                                dense_mlp=dense_mlp, lead=lead)
             for li, layer in enumerate(pattern)
             for si, kind in enumerate(layer)}
 
@@ -95,7 +128,7 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int, length: int,
     """One sublayer's decode cache.  With ``paged`` (a PagedLayout) the
     attn leaves are shared page POOLS (num_pages, page_size, ...) instead
     of per-slot (B, T, ...) strips."""
-    _check_kind(kind)
+    check_servable_kind(kind)
     if kind != "attn":
         return {}                      # mlp is stateless
     kw = dict(dtype=dtype, quant=cfg.kv_cache_quant, lead=lead, device=device)
@@ -156,11 +189,11 @@ def _unstack(tree) -> list:
 # ---------------------------------------------------------------------------
 
 def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
-                   sliding_window=None):
-    """Returns (residual_update, aux_loss); the ported kinds have no
-    auxiliary loss (0.0)."""
-    _check_kind(kind)
+                   memory=None, sliding_window=None):
+    """Returns (residual_update, aux_loss); the aux loss is the MoE
+    router's, 0.0 for every other kind."""
     x = _apply_norm(cfg, p["norm"], h)
+    aux = 0.0
     if kind == "attn":
         y = attn_lib.apply_gqa(p, x, positions, num_heads=cfg.num_heads,
                                num_kv_heads=cfg.num_kv_heads,
@@ -168,39 +201,66 @@ def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
                                rotary_dim=cfg.rotary_dim,
                                rope_theta=cfg.rope_theta,
                                sliding_window=sliding_window)
+    elif kind == "mla":
+        y = attn_lib.apply_mla(p, x, positions, num_heads=cfg.num_heads,
+                               kv_lora_rank=cfg.kv_lora_rank,
+                               qk_nope_dim=cfg.qk_nope_dim,
+                               qk_rope_dim=cfg.qk_rope_dim,
+                               v_head_dim=cfg.v_head_dim,
+                               rope_theta=cfg.rope_theta,
+                               sliding_window=sliding_window)
+    elif kind == "cross":
+        y = attn_lib.apply_cross_attention(p, x, memory, num_heads=cfg.num_heads,
+                                           num_kv_heads=cfg.num_kv_heads,
+                                           head_dim=cfg.head_dim_)
+    elif kind == "mlp" or (kind == "moe" and "router" not in p):
+        y = apply_mlp(p, x)            # a moe without router: first_dense_layers
+    elif kind == "moe":
+        y, aux = moe_lib.apply_moe(p, x, top_k=cfg.experts_per_token,
+                                   capacity_factor=cfg.capacity_factor)
+    elif kind == "mamba":
+        y = mamba_lib.apply_mamba(p, x, d_state=cfg.d_state)
+    elif kind == "rwkv_tm":
+        y = rwkv_lib.apply_rwkv_timemix(p, x, num_heads=cfg.num_heads,
+                                        mode=cfg.rwkv_mode)
+    elif kind == "rwkv_cm":
+        y = rwkv_lib.apply_rwkv_channelmix(p, x)
     else:
-        y = apply_mlp(p, x)
-    return y, 0.0
+        raise ValueError(kind)
+    return y, aux
 
 
 def apply_superblock(p_sb, cfg: ModelConfig, h, positions, *, pattern=None,
-                     sliding_window=None):
+                     memory=None, sliding_window=None):
     pattern = pattern or cfg.block_pattern
     aux_total = 0.0
     for li, layer in enumerate(pattern):
         for si, kind in enumerate(layer):
             y, aux = apply_sublayer(kind, p_sb[f"l{li}_{si}_{kind}"], cfg, h,
-                                    positions, sliding_window=sliding_window)
+                                    positions, memory=memory,
+                                    sliding_window=sliding_window)
             h = h + y
             aux_total = aux_total + aux
     return h, aux_total
 
 
-def apply_stack(stacked, cfg: ModelConfig, h, positions, *,
+def apply_stack(stacked, cfg: ModelConfig, h, positions, *, memory=None,
                 sliding_window=None, remat: bool = True):
     """Every superblock of ``stacked`` (leading axis: superblocks) in order.
     Returns (h, total_aux_loss).  ``remat`` recomputes each superblock in
-    the backward instead of keeping its activations."""
-    def body(p_sb, h):
-        return apply_superblock(p_sb, cfg, h, positions,
+    the backward instead of keeping its activations; ``memory`` (the
+    encoder's output, for ``cross``) enters each recomputed superblock as
+    an input."""
+    def body(p_sb, h, memory):
+        return apply_superblock(p_sb, cfg, h, positions, memory=memory,
                                 sliding_window=sliding_window)
 
     aux = 0.0
     for p_sb in _unstack(stacked):
         if remat and torch.is_grad_enabled():
-            h, a = checkpoint(body, p_sb, h, use_reentrant=False)
+            h, a = checkpoint(body, p_sb, h, memory, use_reentrant=False)
         else:
-            h, a = body(p_sb, h)
+            h, a = body(p_sb, h, memory)
         aux = aux + a
     return h, aux
 
@@ -212,7 +272,7 @@ def apply_stack(stacked, cfg: ModelConfig, h, positions, *,
 def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
                           paged=None, pages=None, pages_swa=None, live=None,
                           kv_read="gather"):
-    _check_kind(kind)
+    check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
     if kind == "mlp":
         return apply_mlp(p, x), cache
@@ -262,7 +322,7 @@ def apply_sublayer_prefill(kind: str, p, cache, cfg: ModelConfig, h, pos,
                            valid, *, paged=None, pages=None, pages_swa=None):
     """Chunked-prefill sublayer step.  h (B,C,d); pos (B,) start positions;
     valid (B,C) marks real tokens.  Returns (residual update, cache)."""
-    _check_kind(kind)
+    check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
     if kind == "mlp":
         return apply_mlp(p, x), cache

@@ -179,7 +179,7 @@ class BatchedEngine:
                 "kv_read='kernel': chunked-prefill reads stay on the gather "
                 "read path (the kernel covers stacked GQA decode only)",
                 stacklevel=2)
-        lm_lib.check_supported(cfg)
+        lm_lib.check_servable(cfg)
         self.codec = codec
         self.codec_params = codec_params
         self.params = params

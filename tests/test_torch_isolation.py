@@ -82,7 +82,9 @@ def _run_blocked(code):
 @pytest.mark.parametrize("module", [
     "repro_torch.launch.train", "repro_torch.checkpoint",
     "repro_torch.models.lm", "repro_torch.data.pipeline",
-    "repro_torch.optim"])
+    "repro_torch.optim", "repro_torch.models.moe", "repro_torch.models.mamba",
+    "repro_torch.models.rwkv", "repro_torch.models.attention",
+    "repro_torch.models.stack"])
 def test_training_modules_import_with_jax_absent(module):
     out = _run_blocked(f"import {module}\nprint('ok')\n")
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

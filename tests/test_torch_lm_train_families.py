@@ -1,0 +1,91 @@
+"""The port's LM training path on the other model families, held against
+the JAX reference on the same weights, codec keys and batches: ``lm_loss``
+and every gradient leaf against ``jax.grad``, with no codec and with
+``c3sl:R=2,backend=pallas`` at the superblock midpoint.
+
+The families: MoE (``phi3.5-moe-42b-a6.6b``), MoE with MLA and a first
+dense layer (``deepseek-v2-lite-16b``), the Mamba + attention + MoE hybrid
+(``jamba-1.5-large-398b``), RWKV-6 in the chunked time-mix
+(``rwkv6-1.6b``), the encoder-decoder with an audio frontend
+(``seamless-m4t-large-v2``) and the VLM (``pixtral-12b``), each at
+``reduced()`` size and S = 8, the two frontend archs with a random
+frontend batch.  The helpers, tolerances and batches are
+``tests/test_torch_lm_train.py``'s.  Routing is compared as integers in
+``tests/test_torch_moe.py``; here a flipped top-k choice would show as a
+loss far outside the tolerance.  Also: ``param_count`` and
+``active_param_count`` of all ten archs, full size and reduced, equal the
+reference's."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import base as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch.configs import base as tconfigs  # noqa: E402
+from repro_torch.interop import params_from_numpy, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from test_torch_lm_train import NEW_FAMILIES, _assert_parity, _grads  # noqa: E402
+
+# The recurrent families' float32 gradients sit further from exact, in both
+# packages: RWKV-6's per-head group norm divides by each head's standard
+# deviation, and the hybrid's 14 Mamba layers run the scan as a
+# Hillis-Steele prefix scan in the port and as jax.lax.associative_scan in
+# the reference (the same combine in another tree).  Measured against a
+# float64 reference, max |grad error| / max |grad| over the leaves: rwkv6-1.6b port 5.1e-5,
+# reference 1.2e-4; jamba-1.5-large-398b port 2.3e-5, reference 1.5e-5.
+# Port against the float32 reference: rwkv 6.7e-5, jamba 2.5e-5.  So these
+# two are held to 2e-4 of the leaf max; their losses to
+# test_torch_lm_train's 1e-6 (measured 1.4e-7).
+SCAN_GRAD_TOL = 2e-4
+SCAN_FAMILIES = ("jamba-1.5-large-398b", "rwkv6-1.6b")
+
+
+@pytest.mark.parametrize("spec", [None, "c3sl:R=2,backend=pallas"],
+                         ids=["no-codec", "c3sl-pallas"])
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_family_loss_and_grads_match_reference(arch, spec):
+    ref, port = _grads(arch, spec)
+    _assert_parity(ref, port, spec,
+                   grad_tol=SCAN_GRAD_TOL if arch in SCAN_FAMILIES else None)
+
+
+@pytest.mark.parametrize("reduce", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", jconfigs.list_configs())
+def test_param_counts_equal_reference(arch, reduce):
+    jc, tc = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    if reduce:
+        jc, tc = jconfigs.reduced(jc), tconfigs.reduced(tc)
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
+
+
+def test_zero_frontend_stub_overflows_in_both_packages():
+    """The reference driver's frontend stub is zero frames: every encoder
+    row is then the same, so each LayerNorm divides by sqrt(eps) in the
+    backward, about 316x a norm.  With 8 encoder layers the float32
+    gradients overflow, in the reference and in the port alike, at the
+    same elements (so ``chip_smoke.py`` trains the 24-layer encoder of
+    seamless-m4t-large-v2 on random frames)."""
+    arch = "seamless-m4t-large-v2"
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch), encoder_layers=8)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch), encoder_layers=8)
+    pj = jax.tree.map(np.asarray, jlm.init_lm_params(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(0)
+    toks, labels = (rng.integers(0, jcfg.vocab_size, (2, 8)) for _ in range(2))
+    fe = np.zeros((2, jcfg.frontend_seq, jcfg.frontend_dim), np.float32)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "frontend": jnp.asarray(fe)}
+    gj = jax.tree.leaves(jax.jit(jax.grad(lambda p: jlm.lm_loss(p, jb, jcfg)))(pj))
+    tp = tree_map(lambda t: t.clone().requires_grad_(), params_from_numpy(pj, "cpu"))
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+          "frontend": torch.from_numpy(fe)}
+    gt = torch.autograd.grad(tlm.lm_loss(tp, tb, tcfg), tree_leaves(tp))
+    bad_j = [~np.isfinite(np.asarray(g)) for g in gj]
+    bad_t = [~torch.isfinite(g).numpy() for g in gt]
+    assert sum(int(b.sum()) for b in bad_j) > 0
+    for a, b in zip(bad_t, bad_j):
+        np.testing.assert_array_equal(a, b)

@@ -116,6 +116,41 @@ def test_run_standard_matches_reference(argv):
     assert _totals(lines) == _totals(ref_lines)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2"])
+def test_run_standard_other_families_match_reference(arch, monkeypatch):
+    """MoE + MLA with a first dense layer, and the encoder-decoder with its
+    audio frontend: three steps through ``c3sl:R=2``, the losses within
+    LOSS_RTOL, the wire bytes of each step and the totals exactly, and the
+    frontend batch the step sees the reference driver's: zeros of the same
+    shape and dtype, on the run's device (the reference's, traced under
+    jit, gives its shape and dtype)."""
+    seen = {}
+    for pkg, mod in (("ref", jlm), ("port", tlm)):
+        real = mod.lm_loss
+
+        def spy(params, batch, cfg, *a, _pkg=pkg, _real=real, **kw):
+            seen.setdefault(_pkg, batch.get("frontend"))
+            return _real(params, batch, cfg, *a, **kw)
+        monkeypatch.setattr(mod, "lm_loss", spy)
+    args = _args("--steps", "3", "--arch", arch, "--codec", "c3sl:R=2")
+    ref_losses, ref_lines = _run("ref", args)
+    losses, lines = _run("port", args, **_same_start(args))
+    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
+    assert [s for _, s in _steps(lines).values()] == \
+        [s for _, s in _steps(ref_lines).values()] == \
+        ["wire fwd 32,768B + bwd 32,768B /step"] * 3
+    assert _totals(lines) == _totals(ref_lines)
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    if not cfg.frontend:
+        assert seen == {"ref": None, "port": None}
+        return
+    fe, ref_fe = seen["port"], seen["ref"]
+    assert tuple(fe.shape) == tuple(ref_fe.shape) == (8, cfg.frontend_seq,
+                                                      cfg.frontend_dim)
+    assert fe.dtype == torch.float32 and str(ref_fe.dtype) == "float32"
+    assert fe.device.type == "cpu" and not fe.any()
+
+
 def test_adaptive_schedule_walks_and_matches_reference():
     """The Adaptive-R controller walks the ladder over eight steps (more
     than one bucket serves), and the served schedule is the reference's."""
