@@ -22,7 +22,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      ragged D, and the FFT kernels' edges (R 1, 5, 8, 9, 16; G 1, 2, 128; D
      4 to 32, the route's upper limit 16384, and 28672 = 2^12 7, which goes
      direct), every (G, R) the control plane's (R_fwd, R_bwd) programs
-     launch (phase 5) at D 2048 and 4096, the mixed-radix one-pass kernels
+     launch (phase 5) at D 2048 and 4096, phase 13's cut at D 2048 (2, 4,
+     2048) and (128, 4, 2048), the mixed-radix one-pass kernels
      at the serving widths 5120 and 12288 (G 2 a decode step, 128 a prefill
      chunk) and their edges (D 12, 160, 960, 15360, 16200), the four-step
      kernels at (1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440)
@@ -42,7 +43,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      tests/test_paged_kernel.py (shuffled
      tables, spare pages, staggered positions, a dead slot, lengths 16, 17
      and 23 at page size 8), the serving run's shape (B 8, T 512, page
-     size 16, 32 kv heads, head dim 128), GQA groups 4 and 16, the
+     size 16, 32 kv heads, head dim 128) and phase 13's (32 heads over 8
+     kv heads), GQA groups 4 and 16, the
      ring mask with wrapped positions, and the split-K edges (one admitted
      row, a prefix of one chunk of the plan and of one chunk + 1, slots
      whose later chunks are empty, T 4096, chunks over which the tile ring
@@ -107,14 +109,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    call is enqueued behind a sleep kernel, so its time is the device's
    alone (each kernel's host-inclusive time is kept beside it): bind and
    unbind at the training shapes (16, 4, 2048) and (16, 4, 4096), the
-   serving shapes (2, 4, 4096) and (128, 4, 4096), the mixed-radix serving
+   serving shapes (2, 4, 4096) and (128, 4, 4096) (deepseek-7b's and
+   phi3.5-moe-42b-a6.6b's) and (2, 4, 2048) and (128, 4, 2048)
+   (deepseek-v2-lite-16b's), the mixed-radix serving
    shapes (2, 4, 5120), (128, 4, 5120), (2, 4, 12288) and (128, 4, 12288)
    and the ``BENCH_roofline.json`` circconv shapes (B 64, R 4, D 256 and
    1024), each through the FFT kernel, the direct kernel, its plain version
    (fewer runs where one call takes milliseconds) and the torch.fft route
    of the same function (the library yardstick); each paged
    kernel at the serving shape with positions 128-160 and with one live
-   slot at position 511 (with the wrapper's split plan, the share of the
+   slot at position 511, and at phi3.5-moe-42b-a6.6b's geometry (KV 8)
+   with positions 128-160 (with the wrapper's split plan, the share of the
    bound and the host-included time), its plain version and, for the
    float kernel, gather_pages followed by
    ``scaled_dot_product_attention``.  The four-step kernels at the LM
@@ -198,6 +203,33 @@ Phases (any failure exits non-zero, and no result line is printed):
       128 * 256 = 32768, 524,288 bytes.
    ``pixtral-12b`` is not run: its cut at S 128 is D = (1024 + 128) * 5120
    = 5,898,240, past the four-step route's 2^22 (ROADMAP.md B14).
+13. Serving the attention-cache families, after ``free_cuda()``, through
+   ``BatchedEngine`` at phase 4's settings (float32, TF32 off, 8 slots,
+   max_len 512, page size 16, chunk 64, ``sync_every`` 8, greedy, paged,
+   ``c3sl:R=4,backend=pallas`` at the stack midpoint, random weights from
+   the seed, 16 requests of 128 + 32 tokens).  For each arch: the served
+   logits (``prefill_chunk`` over staggered prompts, then 3 teacher-forced
+   ``decode_step`` calls, no codec) against ``lm_forward`` at
+   ``capacity_factor = num_experts`` within LOGIT_TOL of max|logit|; every
+   engine run with bind and unbind once per decode step at (2, 4, D) and
+   once per prefill chunk at (128, 4, D), all on the FFT route, none
+   direct; the wire bytes exactly those payloads; every MoE call keeping
+   every token copy (``moe.ROUTING_LOG``); ``cache_bytes`` equal to the
+   count from the config; the decode-step time at 8 live slots, tokens/s,
+   mean TTFT, the idle share of one profiled decode window, the peak
+   memory and the arch's seconds.
+   a. ``deepseek-v2-lite-16b`` (as phase 9: the dense layer and 4 MLA +
+      MoE superblocks, 2.84 B parameters, 11.4 GB), D = 2048:
+      kv_read="kernel" raises ``ValueError`` (no attn layer), and the paged
+      gather run's greedy tokens equal the contiguous run's; the cache is
+      (512 + 64) float32 values a position a layer.
+   b. ``phi3.5-moe-42b-a6.6b`` at full width (d_model 4096, 32 heads over
+      8 KV heads of 128, 16 experts of 6400, top-2, vocab 32064), its depth
+      cut to 8 of 32 layers (10.66 B parameters, 42.6 GB; all 32 take 168
+      GB), D = 4096: phase 4's kernel-against-gather checks (teacher-forced
+      logits, token agreement) and 8 float paged launches a decode step;
+      then bfloat16 weights over an int8 KV cache, 8 requests of 128 + 16,
+      8 int8 launches a decode step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -271,10 +303,15 @@ LM_SHAPE = LM_SHAPES[0]
 ORACLE_SHAPES = LM_SHAPES + FFT4_EDGE_SHAPES + [(128, 4, 12288)]
 # the direct kernels, called explicitly at the main-path shapes
 DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
+# phase 13's cut at deepseek-v2-lite-16b's width (D = d_model = 2048): a
+# decode step (G = 8 slots / R 4 = 2) and a 64-token prefill chunk (G 128);
+# phi3.5-moe-42b-a6.6b's, at D 4096, are FFT_EDGE_SHAPES' (2, 4, 4096) and
+# (128, 4, 4096)
+FAMILY_SERVE_SHAPES = [(2, 4, 2048), (128, 4, 2048)]
 # phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
 # circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
 TIME_SHAPES = [(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
-               (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES
+               (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES + FAMILY_SERVE_SHAPES
 TOL = {"float32": 1e-5}
 # bfloat16 outputs are rounded once, by half an ulp (at most 2^-8 of the
 # element, 2^-8/sqrt(3) in RMS), so their limits scale with the compared
@@ -290,6 +327,8 @@ SERVE_ENGINE = dict(num_slots=8, max_len=512, page_size=16, chunk_size=64,
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, 128, 32
 QUANT_REQUESTS, QUANT_NEW = 8, 16
 MAIN_PAGED = dict(B=8, ps=16, H=32, KV=32, hd=128, length=512)
+# phase 13's GQA decode read: phi3.5-moe-42b-a6.6b's 32 heads over 8 KV heads
+KV8_PAGED = dict(MAIN_PAGED, KV=8)
 LOGIT_TOL = 1e-3            # teacher-forced kernel vs gather, of max|logit|
 SLEEP_CYCLES = 10_000_000   # about 5 ms: the host enqueues the timed calls
 
@@ -343,6 +382,16 @@ FAMILY_RUNS = [(9, "deepseek-v2-lite-16b", 5, False, (4, 4, 262144)),
                (11, "seamless-m4t-large-v2", None, False, (4, 4, 131072)),
                (12, "jamba-1.5-large-398b", None, True, (4, 4, 32768))]
 FAMILY_TIMED_STEPS = 5
+
+# phase 13, serving the attention-cache families through the engine at full
+# width, with phase 4's settings: (arch, the depth it runs at).
+# deepseek-v2-lite-16b (MLA + MoE, 64 experts top-6 + 2 shared, a dense
+# first layer): that layer and 4 superblocks, as phase 9 (2.84 B params,
+# 11.4 GB in float32; 15.7 B at the full 27 layers), the codec after stacked
+# superblock 2 at D 2048.  phi3.5-moe-42b-a6.6b (GQA 32 over 8 heads, 16
+# experts top-2): 8 of its 32 layers (10.66 B params, 42.6 GB; all 32 would
+# take 168 GB, past one card), the codec after layer 4 at D 4096.
+FAMILY_SERVE = [("deepseek-v2-lite-16b", 5), ("phi3.5-moe-42b-a6.6b", 8)]
 
 
 class SmokeFailure(RuntimeError):
@@ -489,8 +538,8 @@ def kernel_checks(dev) -> dict:
     errs = {k + sfx: {} for sfx in ("", "_mixed", "_fft4", "_direct")
             for k in ("bind_superpose", "unbind")}
     routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()
-                                + MIXED_SHAPES + FFT4_SHAPES + FFT4_EDGE_SHAPES
-                                + LM_SHAPES))
+                                + FAMILY_SERVE_SHAPES + MIXED_SHAPES + FFT4_SHAPES
+                                + FFT4_EDGE_SHAPES + LM_SHAPES))
     # errors kept by kernel: the power-of-two one-pass kernels', the
     # mixed-radix ones', the four-step ones' and the direct ones' apart
     cases = ([(s, r, _record_suffix(r, s[-1]))
@@ -680,6 +729,7 @@ def paged_kernel_checks(dev) -> dict:
     shapes = [(f"ps8/T{n}", dict(B=3, ps=8, H=4, KV=2, hd=16, length=n), None)
               for n in (16, 17, 23)]
     shapes.append(("main", MAIN_PAGED, None))
+    shapes.append(("kv8", KV8_PAGED, None))
     shapes += [(f"groups{g}", dict(B=4, ps=16, H=2 * g, KV=2, hd=128,
                                    length=100), None) for g in (4, 16)]
     # the ring: T = the window, positions past T have wrapped
@@ -851,11 +901,11 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
 # phase 4: the serving path
 # --------------------------------------------------------------------------
 
-def serve_model(dtype, dev, quant=False):
-    """deepseek-7b at full width and depth, random weights from the seed."""
-    from repro_torch.configs.base import get_config
+def serve_model(dtype, dev, quant=False, arch=SERVE_ARCH, layers=None):
+    """``arch`` at full width, its depth cut to ``layers`` (None: deepseek-7b
+    at its full 30), random weights from the seed."""
     from repro_torch.models import lm as lm_lib
-    cfg = get_config(SERVE_ARCH)
+    cfg = lm_config(arch, layers)
     if quant:
         cfg = dataclasses.replace(cfg, kv_cache_quant=True)
     return cfg, lm_lib.init_lm_params(SEED, cfg, dtype=dtype, device=dev)
@@ -910,33 +960,44 @@ def finite_logits():
         result[0] = flag is not None and bool(flag)
 
 
-def make_engine(params, cfg, kv_read: str):
+def make_engine(params, cfg, kv_read: str, **over):
     from repro_torch.serving.engine import BatchedEngine
     return BatchedEngine(params, cfg, codec=SERVE_CODEC, seed=SEED,
-                         kv_read=kv_read, **SERVE_ENGINE)
+                         kv_read=kv_read, **dict(SERVE_ENGINE, **over))
 
 
-def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
-    """One engine run of ``n_req`` requests, launch counts reset just
-    before and read just after.  Returns (engine, record)."""
+def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
+    """One engine run of ``n_req`` requests (``over`` overrides
+    SERVE_ENGINE's settings), launch counts and, with experts, the MoE
+    routing log reset just before and read just after.  Returns (engine,
+    record)."""
     import torch
     from repro_torch.kernels import circconv
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import moe
     from repro_torch.serving.engine import Request
-    eng = make_engine(params, cfg, kv_read)
+    eng = make_engine(params, cfg, kv_read, **over)
     prompts = serve_prompts(n_req, cfg.vocab_size)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     pa.reset_launch_counts()
     circconv.reset_launch_counts()
-    with finite_logits() as finite:
-        t0 = time.perf_counter()
-        for u, p in enumerate(prompts):
-            eng.submit(Request(uid=u, prompt=p, max_new_tokens=max_new))
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    moe.ROUTING_LOG = [] if cfg.num_experts else None
+    try:
+        with finite_logits() as finite:
+            t0 = time.perf_counter()
+            for u, p in enumerate(prompts):
+                eng.submit(Request(uid=u, prompt=p, max_new_tokens=max_new))
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log = moe.ROUTING_LOG
+    finally:
+        moe.ROUTING_LOG = None
     counts = {**pa.LAUNCHES, **circconv.LAUNCHES}
     routes, by_kernel = route_counts(), record_launches()
+    shapes = {"{}/{}x{}x{}".format(*k): n
+              for k, n in sorted(circconv.SHAPE_LAUNCHES.items())}
     outs = {r.uid: r.out for r in done}
     gen = sum(len(o) for o in outs.values())
     st = eng.stats
@@ -947,7 +1008,9 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
            "mean_ttft_ms": statistics.mean(r.t_first - r.t_submit
                                            for r in done) * 1e3,
            "finite_logits": finite[0], "launches": counts,
-           "route_launches": routes, "record_launches": by_kernel, "outs": outs,
+           "route_launches": routes, "record_launches": by_kernel,
+           "shape_launches": shapes, "outs": outs,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            **{k: st[k] for k in ("decode_steps", "prefill_chunks", "dispatches",
                                  "wire_bytes_fwd", "kv_read_execution_mode",
                                  "codec_execution_mode")}}
@@ -955,6 +1018,10 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int):
           f"serve {kv_read}: {len(done)} of {n_req} requests, lengths "
           f"{sorted({len(o) for o in outs.values()})}")
     check(rec["finite_logits"], f"serve {kv_read}: non-finite logits")
+    if log is not None:
+        kept = torch.stack([k for k, _, _ in log]).tolist()
+        rec["moe_calls"] = len(log)
+        rec["moe_dropped"] = sum(n - k for k, (_, n, _) in zip(kept, log))
     return eng, rec
 
 
@@ -1161,6 +1228,303 @@ def serving_path(dev) -> dict:
     del eng, params_q
     free_cuda()
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 13: serving the attention-cache families
+# --------------------------------------------------------------------------
+
+def moe_layers(cfg) -> int:
+    """The routed MoE sublayers one serving call runs (the first-dense
+    superblock's moe sublayers are dense MLPs)."""
+    return cfg.num_superblocks * sum(k == "moe" for layer in cfg.block_pattern
+                                     for k in layer)
+
+
+def analytic_cache_bytes(cfg, kv_layout: str) -> int:
+    """The float32 cache bytes the engine must hold, from the config alone:
+    per cached position and layer, (kv_lora + rope) values for an mla
+    sublayer and K and V (KV heads x head dim) for an attn one, the
+    first-dense superblock included; num_slots x max_len positions
+    (contiguous) or the fully provisioned pool's pages x page size, plus
+    its int32 page table (paged)."""
+    B, T, ps = (SERVE_ENGINE[k] for k in ("num_slots", "max_len", "page_size"))
+    per = {"mla": (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4,
+           "attn": 2 * cfg.num_kv_heads * cfg.head_dim_ * 4}
+    layers = cfg.num_superblocks + (1 if cfg.first_dense_layers else 0)
+    per_pos = layers * sum(per.get(k, 0) for layer in cfg.block_pattern
+                           for k in layer)
+    if kv_layout == "contiguous":
+        return B * T * per_pos
+    pps = -(-T // ps)
+    return B * pps * ps * per_pos + B * pps * 4
+
+
+def check_family_run(rec, cfg):
+    """What a phase 13 engine run must show: bind and unbind once per decode
+    step at (G, R, D) = (num_slots / 4, 4, d_model) and once per prefill
+    chunk at (chunk x G, 4, d_model), every one on the FFT route (none
+    direct); the wire bytes exactly those payloads (float32, G x D a step,
+    chunk x G x D a chunk); every routed MoE sublayer called once per step
+    and chunk, with no token copy dropped; the paged kernel of the cache's
+    dtype once per attn layer per decode step under the kernel read, the
+    other one never; the codec on the CUDA kernels."""
+    steps, chunks = rec["decode_steps"], rec["prefill_chunks"]
+    C = SERVE_ENGINE["chunk_size"]
+    G, D = SERVE_ENGINE["num_slots"] // 4, cfg.d_model
+    want = {f"{n}/{g}x4x{D}": k for n in ("bind_superpose", "unbind")
+            for g, k in ((C * G, chunks), (G, steps))}
+    what = f"serve {cfg.name} {rec['kv_read']}"
+    check(rec["shape_launches"] == dict(sorted(want.items())),
+          f"{what}: circconv launches {rec['shape_launches']}, want {want}")
+    check_fft_route(rec["route_launches"], steps + chunks, what)
+    wire = (steps * G + chunks * C * G) * D * 4
+    check(rec["wire_bytes_fwd"] == wire,
+          f"{what}: wire bytes {rec['wire_bytes_fwd']}, want {wire}")
+    check(rec["moe_calls"] == moe_layers(cfg) * (steps + chunks)
+          and rec["moe_dropped"] == 0,
+          f"{what}: {rec['moe_calls']} MoE calls ({moe_layers(cfg)} layers x "
+          f"{steps + chunks} calls), {rec['moe_dropped']} copies dropped")
+    name, other = (("paged_attention_quant", "paged_attention")
+                   if cfg.kv_cache_quant else
+                   ("paged_attention", "paged_attention_quant"))
+    n = n_attn_layers(cfg) * steps if rec["kv_read"] == "kernel" else 0
+    got = {k: rec["launches"][k] for k in (name, other)}
+    check(got == {name: n, other: 0}, f"{what}: paged launches {got}, want "
+          f"{ {name: n, other: 0} }")
+    check(rec["codec_execution_mode"] == "cuda-kernel",
+          f"{what}: codec ran as {rec['codec_execution_mode']}")
+
+
+def lm_forward_parity(params, cfg, dev, steps=3) -> dict:
+    """Teacher-forced serving against the training forward on the same
+    tokens: 8 rows of staggered prompt lengths (128 down to 72) through
+    ``prefill_chunk`` (paged, a shuffled page table), then ``steps``
+    ``decode_step`` calls, each fed the next token of each row; every
+    call's logits against ``lm_forward``'s at the same positions, within
+    LOGIT_TOL of max|logit|.  No codec on either side: the training cut
+    groups whole sequences (D = S x d_model), the serving cut slots at one
+    position.  ``lm_forward`` runs at capacity_factor = num_experts, the
+    serving capacity (at the training 1.25 it drops copies and cannot
+    match).  Each MoE call's routing is kept, so the record counts the
+    (layer, row, position) decisions where serving picked other experts
+    than ``lm_forward`` (a near-tie in the router that float32 rounding
+    flips), the rows they fall in, and the largest gap of the rows with
+    none.  Also times each prefill chunk (host clock, synchronised)."""
+    import torch
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import moe
+    from repro_torch.models.paging import PagedLayout
+    B, T, ps, C = (SERVE_ENGINE[k] for k in ("num_slots", "max_len",
+                                              "page_size", "chunk_size"))
+    L, k = moe_layers(cfg), cfg.experts_per_token
+    S = SERVE_PROMPT + steps
+    rng = np.random.RandomState(SEED + 6)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
+    routes, real_route = [], moe.route
+
+    def spy(p, xf, **kw):
+        r = real_route(p, xf, **kw)
+        routes.append(r["expert_idx"].sort(-1).values)
+        return r
+
+    def taken(shape):
+        out = torch.stack(routes).reshape(L, *shape, k)
+        routes.clear()
+        return out
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            want, _ = lm_lib.lm_forward(
+                params, {"tokens": toks},
+                dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)),
+                remat=False)
+        ref = taken((B, S))
+        layout = PagedLayout(ps, T, B * T // ps)
+        cache = lm_lib.init_decode_cache(params, cfg, B, T, paged=layout)
+        cache["pages"] = torch.from_numpy(
+            rng.permutation(B * T // ps).astype(np.int32).reshape(B, -1)).to(dev)
+        lens = torch.tensor([max(SERVE_PROMPT - 8 * b, 1) for b in range(B)],
+                            device=dev)
+        rows = torch.arange(B, device=dev)
+        pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+        flips = torch.zeros((L, B), dtype=torch.long, device=dev)
+        row_gaps, chunk_ms = [], []
+
+        def row_gap(got, want_):
+            return (got - want_).abs().amax(-1) / want_.abs().max()
+
+        for c0 in range(0, SERVE_PROMPT, C):
+            valid = (c0 + torch.arange(C, device=dev))[None, :] < lens[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = lm_lib.prefill_chunk(params, cache, toks[:, c0:c0 + C],
+                                             pos, cfg, valid=valid, paged=layout)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            flips += ((taken((B, C)) != ref[:, :, c0:c0 + C]).any(-1)
+                      & valid).sum(-1)
+            pos = pos + valid.sum(-1).to(torch.int32)
+        row_gaps.append(row_gap(logits, want[rows, lens - 1]))
+        for _ in range(steps):
+            lg, _ = lm_lib.decode_step(params, cache, toks[rows, pos][:, None],
+                                       pos, cfg, paged=layout)
+            flips += (taken((B,)) != ref[:, rows, pos.long()]).any(-1)
+            row_gaps.append(row_gap(lg[:, 0], want[rows, pos.long()]))
+            pos = pos + 1
+    finally:
+        moe.route = real_route
+    row_gaps = torch.stack(row_gaps)                       # (calls, B)
+    flipped = flips.sum(0) > 0
+    gaps = row_gaps.amax(-1).tolist()
+    clean = row_gaps[:, ~flipped]
+    del cache, want
+    free_cuda()
+    check(max(gaps) <= LOGIT_TOL, f"{cfg.name}: served logits vs lm_forward: "
+          f"gaps {gaps} of max|logit| > {LOGIT_TOL}")
+    return {"steps": steps, "gap_of_max_logit": gaps,
+            "routing_flips": int(flips.sum()),
+            "rows_with_flips": flipped.nonzero()[:, 0].tolist(),
+            "gap_rows_without_flips": (float(clean.max()) if clean.numel()
+                                       else None),
+            "prefill_chunk_ms": chunk_ms, "prompt_lens": lens.tolist()}
+
+
+def family_serving(dev, arch: str, layers: int) -> dict:
+    """Phase 13 for one arch at full width, depth cut to ``layers``, through
+    the engine at phase 4's settings.  Without an attn sublayer
+    (deepseek-v2-lite-16b) kv_read="kernel" must raise ValueError, and the
+    paged gather run's greedy tokens must equal the contiguous run's.  With
+    one (phi3.5-moe-42b-a6.6b), phase 4's kernel-against-gather checks, then
+    bfloat16 weights over int8 KV through the int8 kernel.  Every run is
+    held by ``check_family_run``; the served logits by
+    ``lm_forward_parity``; the cache bytes against ``analytic_cache_bytes``;
+    the first engine's decode window is timed and profiled."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import tree_leaves
+    t0 = time.perf_counter()
+    cfg, params = serve_model(torch.float32, dev, arch=arch, layers=layers)
+    res = {"arch": arch, "layers": [cfg.num_layers, get_config(arch).num_layers],
+           "n_attn_layers": n_attn_layers(cfg), "moe_layers": moe_layers(cfg),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params))}
+    res["lm_forward"] = lm_forward_parity(params, cfg, dev)
+    runs = {}
+    if not n_attn_layers(cfg):
+        try:
+            make_engine(params, cfg, "kernel")
+        except ValueError as e:
+            res["kernel_read_refused"] = str(e)
+        check("kernel_read_refused" in res,
+              f"{arch}: kv_read='kernel' without an attn sublayer did not raise")
+        layouts = ("paged", "contiguous")
+        for layout in layouts:
+            eng, runs[layout] = serve_run(params, cfg, "gather", SERVE_REQUESTS,
+                                          SERVE_NEW, kv_layout=layout)
+            res[f"cache_bytes_{layout}"] = eng.cache_bytes
+            if layout == "paged":
+                res["window"] = decode_window_times(eng)
+            del eng
+            free_cuda()
+        check(runs["paged"]["outs"] == runs["contiguous"]["outs"],
+              f"{arch}: greedy tokens differ between paged and contiguous")
+    else:
+        layouts = ("paged",)
+        res["teacher_forced"] = teacher_forced_parity(params, cfg, dev)
+        for kv_read in ("kernel", "gather"):
+            eng, runs[kv_read] = serve_run(params, cfg, kv_read, SERVE_REQUESTS,
+                                           SERVE_NEW)
+            if kv_read == "kernel":
+                res["cache_bytes_paged"] = eng.cache_bytes
+                res["window"] = decode_window_times(eng)
+            del eng
+            free_cuda()
+        res["agreement"] = token_agreement(runs["kernel"]["outs"],
+                                           runs["gather"]["outs"])
+        del params
+        free_cuda()
+        cfg_q, params = serve_model(torch.bfloat16, dev, quant=True, arch=arch,
+                                    layers=layers)
+        eng, runs["quant"] = serve_run(params, cfg_q, "kernel", QUANT_REQUESTS,
+                                       QUANT_NEW)
+        check_family_run(runs["quant"], cfg_q)
+        del eng
+    for layout in layouts:
+        want = analytic_cache_bytes(cfg, layout)
+        check(res[f"cache_bytes_{layout}"] == want, f"{arch} {layout}: cache "
+              f"bytes {res[f'cache_bytes_{layout}']}, want {want}")
+    for key, rec in runs.items():
+        if key != "quant":
+            check_family_run(rec, cfg)
+    del params
+    free_cuda()
+    res["runs"] = runs
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def print_family_serving(card, res):
+    arch = res["arch"]
+    runs = res["runs"]
+    lf = res["lm_forward"]
+    print(f"serving {arch} full width, {res['layers'][0]} of {res['layers'][1]} "
+          f"layers (cut in depth), float32, {SERVE_CODEC}: params "
+          f"{res['param_bytes'] / 1e9:.2f} GB, {res['n_attn_layers']} attn and "
+          f"{res['moe_layers']} MoE layers; teacher-forced served logits vs "
+          f"lm_forward (capacity = num_experts) gap "
+          f"{max(lf['gap_of_max_logit']):.3g} of max|logit| (limit {LOGIT_TOL}); "
+          f"{lf['routing_flips']} routing decisions flipped, in rows "
+          f"{lf['rows_with_flips']}; gap of the other rows "
+          f"{lf['gap_rows_without_flips']}", flush=True)
+    if "kernel_read_refused" in res:
+        print(f"  kv_read='kernel' refused: {res['kernel_read_refused'][:80]}")
+        print(f"  greedy tokens paged == contiguous: True; cache bytes "
+              f"{res['cache_bytes_paged']} paged, {res['cache_bytes_contiguous']} "
+              "contiguous (analytic)")
+    else:
+        tf, ag = res["teacher_forced"], res["agreement"]
+        print(f"  teacher-forced kernel vs gather logit gap "
+              f"{max(tf['gap_of_max_logit']):.3g} of max|logit|; greedy tokens "
+              f"{ag['share_equal']:.4f} equal, first difference at "
+              f"{ag['first_differing_position']}; cache bytes "
+              f"{res['cache_bytes_paged']} paged (analytic)")
+    for key, r in runs.items():
+        print(f"  serve {key} kv_read={r['kv_read']} ({r['kv_read_execution_mode']}): "
+              f"{r['completed']} requests, {r['generated']} tokens, "
+              f"{r['decode_steps']} decode steps, {r['prefill_chunks']} prefill "
+              f"chunks; circconv {r['shape_launches']}; paged "
+              f"{ {k: r['launches'][k] for k in ('paged_attention', 'paged_attention_quant')} }; "
+              f"MoE calls {r['moe_calls']}, dropped {r['moe_dropped']}; wire "
+              f"{r['wire_bytes_fwd']:,d} B (exact)", flush=True)
+    for key, r in runs.items():
+        print(f"time [{card}] serve {arch} {key} {r['requests']}x({SERVE_PROMPT}+"
+              f"{r['max_new']}): {r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} "
+              f"generated tok/s, mean TTFT {r['mean_ttft_ms']:.1f} ms, peak "
+              f"{r['peak_gb']:.1f} GB", flush=True)
+    w = res["window"]
+    print(f"time [{card}] serve {arch} decode step (8 live slots, float32): "
+          f"{w['decode_step_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} tok/s); "
+          f"prefill chunk (8 x 64, no codec) "
+          f"{', '.join(f'{t:.1f}' for t in lf['prefill_chunk_ms'])} ms", flush=True)
+    if w["profile"] is None:
+        print(f"profile [{card}] {arch} decode window: the profiler saw no device "
+              "time (not measured)")
+    else:
+        wp = w["profile"]
+        print(f"profile [{card}] {arch} decode window: device "
+              f"{wp['device_ms_per_step']:.3f} ms/step, idle "
+              f"{wp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step "
+              f"({wp['idle_share_profiled']:.3f} profiled); paged kernel "
+              f"{wp['paged_kernel_ms_per_step']:.4f} ms/step; circconv "
+              f"{wp['circconv_ms_per_step']:.4f} ms/step "
+              f"({wp['circconv_ms_per_step'] / wp['device_ms_per_step']:.5f} of "
+              f"device time); {wp['device_ops_per_step']:.0f} device ops/step",
+              flush=True)
+        for r in wp["top"][:8]:
+            print(f"  {r['ms_per_step']:.4f} ms/step  {r['name']}")
+    print(f"serving {arch}: phase seconds {res['seconds']:.1f}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1701,9 +2065,13 @@ def fft4_times(dev) -> dict:
 
 
 # phase 6's paged shapes: the serving run's decode read (8 slots, positions
-# spread over 128-160) and one live slot with the whole cache admitted
-PAGED_TIME_POS = {"serving": np.linspace(128, 160, 8).round().astype(np.int32),
-                  "one_slot": np.array([511], np.int32)}
+# spread over 128-160) and one live slot with the whole cache admitted, at
+# deepseek-7b's geometry (KV = H = 32), and the serving read at
+# phi3.5-moe-42b-a6.6b's (32 heads over KV 8)
+_SERVING_POS = np.linspace(128, 160, 8).round().astype(np.int32)
+PAGED_TIME_SHAPES = {"serving": (MAIN_PAGED, _SERVING_POS),
+                     "one_slot": (MAIN_PAGED, np.array([511], np.int32)),
+                     "serving_kv8": (KV8_PAGED, _SERVING_POS)}
 
 
 def paged_bound(rows, B, H, KV, hd, *, kv_bytes, q_bytes, quant) -> dict:
@@ -1724,8 +2092,8 @@ def paged_bound(rows, B, H, KV, hd, *, kv_bytes, q_bytes, quant) -> dict:
 
 
 def paged_times(dev, sets=4) -> dict:
-    """Each paged kernel at the serving geometry (T 512, page size 16, KV = H
-    = 32, head dim 128) at the two shapes of ``PAGED_TIME_POS``: the float
+    """Each paged kernel at the serving geometries (T 512, page size 16, KV
+    = H = 32 or KV 8, head dim 128) at the shapes of ``PAGED_TIME_SHAPES``: the float
     kernel on float32 pools, the int8 kernel with bfloat16 q and compute,
     as the two serving runs call them.  Calls cycle through ``sets`` tables
     over disjoint pages, so the rows they read are cold in the 50 MB L2
@@ -1740,12 +2108,11 @@ def paged_times(dev, sets=4) -> dict:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.attention import decode_mask
     from repro_torch.models.paging import gather_pages
-    g = dict(MAIN_PAGED)
-    T, H, KV, hd = g["length"], g["H"], g["KV"], g["hd"]
     rng = np.random.RandomState(SEED + 5)
     out = {"paged_attention": {}, "paged_attention_quant": {}}
-    for shape, pos in PAGED_TIME_POS.items():
-        B = g["B"] = len(pos)
+    for shape, (geo, pos) in PAGED_TIME_SHAPES.items():
+        g = dict(geo, B=len(pos))
+        B, T, H, KV, hd = (g[k] for k in ("B", "length", "H", "KV", "hd"))
         rows = int(sum(min(int(p), T - 1) + 1 for p in pos))
         for name, quant, dtype in (("paged_attention", False, torch.float32),
                                    ("paged_attention_quant", True, torch.bfloat16)):
@@ -1772,7 +2139,8 @@ def paged_times(dev, sets=4) -> dict:
                     vv = gather_pages(v, tab, T).transpose(1, 2)
                     mask = decode_mask(p, T, None)[:, None, None, :]
                     return F.scaled_dot_product_attention(
-                        q.transpose(1, 2), kk, vv, attn_mask=mask)
+                        q.transpose(1, 2), kk, vv, attn_mask=mask,
+                        enable_gqa=H != KV)
             bound = paged_bound(rows, B, H, KV, hd, kv_bytes=k.element_size(),
                                 q_bytes=q.element_size(), quant=quant)
             splits, chunk = pa.split_plan(B, KV, H // KV, hd, T, g["ps"],
@@ -2359,8 +2727,10 @@ def main() -> int:
                    else f"{t['library_ms']:.4f} ms")
             where = (f"B{t['shape']['B']} pos {min(t['shape']['pos'])}-"
                      f"{max(t['shape']['pos'])}")
-            print(f"time [{card}] {name} {shape} ({where}) T512 ps16 KV32 "
-                  f"hd128 {t['dtype']}: kernel {t['ms']:.4f} ms "
+            g = t["shape"]
+            print(f"time [{card}] {name} {shape} ({where}) T{g['length']} "
+                  f"ps{g['ps']} H{g['H']} KV{g['KV']} hd{g['hd']} "
+                  f"{t['dtype']}: kernel {t['ms']:.4f} ms "
                   f"({t['ms_host_included']:.4f} host included), splits "
                   f"{t['splits']} x chunk {t['chunk']}, plain "
                   f"{t['plain_ms']:.4f} ms, gather+sdpa {lib}, bound "
@@ -2428,6 +2798,14 @@ def main() -> int:
         print(f"phase {phase}:", flush=True)
         print_lm(card, families[arch])
 
+    print("phase 13: serving the attention-cache families", flush=True)
+    serve_families = {}
+    for arch, layers in FAMILY_SERVE:
+        free_cuda()
+        serve_families[arch] = family_serving(dev, arch, layers)
+        lap(f"serving_{arch}")
+        print_family_serving(card, serve_families[arch])
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -2447,14 +2825,18 @@ def main() -> int:
                 "paged_attention.cu")]
     # at the shapes the record's launches ran: the FFT kernels' from the
     # routed float32 calls at the VGG-16 train step's shape and every
-    # control-plane shape, and from the gradients; the direct kernels' from
+    # control-plane shape and phase 13's serving shapes, and from the
+    # gradients; the paged kernels' at both serving geometries (KV 32, KV 8);
+    # the direct kernels' from
     # their explicit calls at the train step's shape; the mixed-radix
     # one-pass kernels' at the four serving shapes; the four-step kernels'
     # at the three LM training shapes, against the float64 oracle
     serve_keys = ["{}x{}x{}/float32".format(*sh) for sh in MIXED_SERVE_SHAPES]
     lm_keys = ["{}x{}x{}/float32".format(*sh) for sh in LM_SHAPES]
-    cp_keys = ["16x4x2048/float32"] + [f"{G}x{R}x{D}/float32"
-                                       for G, R, D in cp_kernel_shapes() if D == 2048]
+    cp_keys = (["16x4x2048/float32"]
+               + [f"{G}x{R}x{D}/float32" for G, R, D in cp_kernel_shapes() if D == 2048]
+               + ["{}x{}x{}/float32".format(*sh) for sh in
+                  FAMILY_SERVE_SHAPES + [(2, 4, 4096), (128, 4, 4096)]])
     main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
                                        + [errs["bind_superpose"]["grad 16x4x2048"]]),
                  "unbind": max([errs["unbind"][k] for k in cp_keys]
@@ -2469,9 +2851,11 @@ def main() -> int:
                                             for k in lm_keys),
                  "unbind_fft4": max(errs["unbind_fft4"][k] for k in lm_keys),
                  # the serving shape, in the dtype each serving run calls
-                 "paged_attention": errs["paged_attention"]["main/float32"],
-                 "paged_attention_quant":
-                     errs["paged_attention_quant"]["main/bfloat16"]}
+                 "paged_attention": max(errs["paged_attention"][f"{g}/float32"]
+                                        for g in ("main", "kv8")),
+                 "paged_attention_quant": max(
+                     errs["paged_attention_quant"][f"{g}/bfloat16"]
+                     for g in ("main", "kv8"))}
     # the circconv kernels' launches in each main-path run, counted by the
     # run and read just after it (record_launches): the one-pass kernels'
     # in the VGG-16 main run and the control plane's, the direct ones' in
@@ -2483,29 +2867,31 @@ def main() -> int:
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values()]
-    path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs]
+    family_runs = [r for f in serve_families.values() for r in f["runs"].values()]
+    path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *family_runs]
+    one_pass_runs = [main_run, cp, *family_runs]
     launches = {name: counted(name, runs) for name, runs in (
-        ("bind_superpose", [main_run, cp]), ("unbind", [main_run, cp]),
+        ("bind_superpose", one_pass_runs), ("unbind", one_pass_runs),
         ("bind_superpose_direct", [main_run]), ("unbind_direct", [main_run]),
         ("bind_superpose_mixed", path_runs), ("unbind_mixed", path_runs),
         ("bind_superpose_fft4", lm_runs), ("unbind_fft4", lm_runs))}
     check(launches["bind_superpose_mixed"] == launches["unbind_mixed"] == 0,
           f"mixed-radix one-pass launches on the main path: {launches}")
-    launches.update({"paged_attention": rk["launches"]["paged_attention"],
-                     "paged_attention_quant":
-                         rq["launches"]["paged_attention_quant"]})
+    launches.update({name: sum(r["launches"][name] for r in (rk, rg, rq,
+                                                             *family_runs))
+                     for name in ("paged_attention", "paged_attention_quant")})
     vgg = times["16x4x2048"]
 
     def timing(name, wrapper, kernel_route):
         if kernel_route is None:
             t = ptimes[wrapper]["serving"]
-            one = ptimes[wrapper]["one_slot"]
             return {**{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "splits", "share_of_bound",
                                          "ms_host_included")},
-                    "one_slot": {k: one[k] for k in (
+                    **{shape: {k: ptimes[wrapper][shape][k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms", "splits",
-                        "share_of_bound", "ms_host_included")}}
+                        "share_of_bound", "ms_host_included")}
+                       for shape in ("one_slot", "serving_kv8")}}
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                 "direct_one_call_ms", "key_spectra_ms", "sides")
         if kernel_route == "fft4":
@@ -2557,6 +2943,7 @@ def main() -> int:
                           "bnpp_resnet50": cp_bn},
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
         "lm_training_qwen": qwen, "lm_training_families": families,
+        "serving_families": serve_families,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

@@ -32,10 +32,15 @@ per chunk.  The reference computes this attention in plain jnp with no
 Pallas kernel, so the port runs the same plain matmul and softmax as the
 serving path's ``_sdpa``.
 
-Training-time MLA (``apply_mla``) and cross-attention
-(``apply_cross_attention``) come with the other model families; MLA's
-decode and prefill over its compressed cache come with ROADMAP.md slice 4,
-part 3.
+MLA (DeepSeek-V2 multi-head latent attention): ``apply_mla`` trains over
+the whole sequence; ``apply_mla_decode`` and ``apply_mla_prefill`` serve
+over the compressed cache (the latent ``c_kv`` and the shared rope key
+``k_pe``, on either layout) in the absorbed form, with ``W_uk`` folded into
+the query and ``W_uv`` applied after the read, as the reference.  Their
+sums run in another order than ``apply_mla``'s.  A paged latent cache is
+always read by the gather (the reference has no kernel for it).  Cross-attention
+(``apply_cross_attention``) trains; its decode comes with ROADMAP.md slice
+4, part 3.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, matmul, promote,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -416,11 +422,11 @@ def _mla_qc(p, x, positions, *, num_heads, qk_nope_dim, qk_rope_dim, rope_theta)
     """(q_nope, q_rope, c_kv, k_pe): the per-head query halves, the
     normalised latent (B,S,L) and the shared rope key (B,S,rope)."""
     B, S, _ = x.shape
-    q = (x @ p["w_q"]).reshape(B, S, num_heads, qk_nope_dim + qk_rope_dim)
+    q = matmul(x, p["w_q"]).reshape(B, S, num_heads, qk_nope_dim + qk_rope_dim)
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, qk_rope_dim, rope_theta)
-    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])
-    k_pe = apply_rope((x @ p["w_kpe"])[:, :, None, :], positions,
+    c_kv = rms_norm(matmul(x, p["w_dkv"]), p["kv_norm"])
+    k_pe = apply_rope(matmul(x, p["w_kpe"])[:, :, None, :], positions,
                       qk_rope_dim, rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_pe
 
@@ -442,3 +448,90 @@ def apply_mla(p, x, positions, *, num_heads, kv_lora_rank, qk_nope_dim,
     k_cat = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, qk_rope_dim)],
                       dim=-1)
     return _sdpa_causal(q_cat, k_cat, v, sliding_window) @ p["w_o"]
+
+
+# ---------------------------------------------------------------------------
+# MLA serving: absorbed-matrix decode and chunked prefill over the latents
+# ---------------------------------------------------------------------------
+
+def init_mla_cache(batch: int, length: int, kv_lora_rank: int, qk_rope_dim: int,
+                   dtype=torch.float32, *, lead: tuple = (), device="cuda"):
+    """MLA's cache: the compressed latent ``c_kv`` (B, T, kv_lora) and the
+    shared rope key ``k_pe`` (B, T, rope); (num_pages, page_size, ...)
+    pools on the paged layout.  ``lead`` prepends the superblock axis."""
+    return {"c_kv": torch.zeros((*lead, batch, length, kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_pe": torch.zeros((*lead, batch, length, qk_rope_dim),
+                                dtype=dtype, device=device)}
+
+
+def apply_mla_decode(p, x, cache, pos, *, num_heads, kv_lora_rank, qk_nope_dim,
+                     qk_rope_dim, v_head_dim, rope_theta=10000.0, pages=None,
+                     length=None, live=None):
+    """One-token absorbed-matrix decode: scores live in the kv_lora space.
+    x (B,1,D); pos scalar or (B,); ``pages``/``length`` select the paged
+    layout, ``live`` masks the cache writes.  Returns (y (B,1,D), cache)
+    with the new latents written in place."""
+    B = x.shape[0]
+    H = num_heads
+    T = length if pages is not None else cache["c_kv"].shape[1]
+    pos_b = torch.as_tensor(pos, dtype=torch.int32,
+                            device=x.device).expand(B).contiguous()
+    q_nope, q_rope, c_kv_new, k_pe_new = _mla_qc(
+        p, x, pos_b[:, None], num_heads=H, qk_nope_dim=qk_nope_dim,
+        qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
+    _write_rows(cache, {"c_kv": c_kv_new, "k_pe": k_pe_new}, pos_b, T,
+                pages=pages, live=live)
+    view = _view(cache, pages, T)
+    c_kv, k_pe = view["c_kv"], view["k_pe"]
+    w_uk = p["w_uk"].reshape(kv_lora_rank, H, qk_nope_dim)
+    q_eff = torch.einsum("bhd,lhd->bhl", *promote(q_nope[:, 0], w_uk))  # (B,H,L)
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bhl,btl->bht", *promote(q_eff, c_kv))
+              + torch.einsum("bhd,btd->bht", *promote(q_rope[:, 0], k_pe)))
+    scores = scores.to(_acc_dtype(scores.dtype)) * scale
+    valid = torch.arange(T, device=x.device)[None, None, :] <= pos_b[:, None, None]
+    probs = torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1).to(x.dtype)
+    o_c = torch.einsum("bht,btl->bhl", *promote(probs, c_kv))          # (B,H,L)
+    w_uv = p["w_uv"].reshape(kv_lora_rank, H, v_head_dim)
+    out = torch.einsum("bhl,lhv->bhv", *promote(o_c, w_uv))
+    out = out.reshape(B, 1, H * v_head_dim)
+    return matmul(out, p["w_o"]), cache
+
+
+def apply_mla_prefill(p, x, cache, pos, valid, *, num_heads, kv_lora_rank,
+                      qk_nope_dim, qk_rope_dim, v_head_dim, rope_theta=10000.0,
+                      pages=None, length=None):
+    """Chunked absorbed-matrix prefill: x (B,C,D); pos (B,) start
+    positions; valid (B,C) as in :func:`apply_gqa_prefill`.  The scores run
+    over [the cache before the chunk ; the chunk's latents].  Returns
+    (y (B,C,D), cache) with the chunk written in place."""
+    B, C, _ = x.shape
+    H = num_heads
+    T = length if pages is not None else cache["c_kv"].shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    qpos = pos[:, None] + torch.arange(C, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_pe_new = _mla_qc(
+        p, x, qpos, num_heads=H, qk_nope_dim=qk_nope_dim,
+        qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
+    cview = _view(cache, pages, T)
+    c_all = torch.cat([cview["c_kv"], c_kv_new], dim=1)          # (B,T+C,L)
+    pe_all = torch.cat([cview["k_pe"], k_pe_new], dim=1)
+    w_uk = p["w_uk"].reshape(kv_lora_rank, H, qk_nope_dim)
+    q_eff = torch.einsum("bchd,lhd->bchl", *promote(q_nope, w_uk))
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bchl,btl->bhct", *promote(q_eff, c_all))
+              + torch.einsum("bchd,btd->bhct", *promote(q_rope, pe_all)))
+    scores = scores.to(_acc_dtype(scores.dtype)) * scale
+    t_idx = torch.arange(T, dtype=torch.int32, device=x.device)
+    m_cache = (t_idx[None, :] < pos[:, None])[:, None, :].expand(B, C, T)
+    m_chunk = (qpos[:, :, None] >= qpos[:, None, :]) & valid[:, None, :]
+    mask = torch.cat([m_cache, m_chunk], dim=-1)[:, None]        # (B,1,C,T+C)
+    probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1).to(x.dtype)
+    o_c = torch.einsum("bhct,btl->bchl", *promote(probs, c_all))
+    w_uv = p["w_uv"].reshape(kv_lora_rank, H, v_head_dim)
+    out = torch.einsum("bchl,lhv->bchv", *promote(o_c, w_uv))
+    out = out.reshape(B, C, H * v_head_dim)
+    new = {"c_kv": c_kv_new, "k_pe": k_pe_new}
+    return matmul(out, p["w_o"]), _write_chunk(cache, new, qpos, valid, T,
+                                               pages=pages)

@@ -65,13 +65,29 @@ def init_mlp(rng: torch.Generator, d_model: int, d_ff: int, gated: bool = True,
     return p
 
 
+def promote(*ts: torch.Tensor) -> tuple:
+    """The tensors cast to their common dtype, as JAX promotes a mixed
+    product: a float32 residual stream through bfloat16 weights computes in
+    float32 (a bfloat16 model served past its float32 cache reads)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's dtype promotion (see :func:`promote`)."""
+    x, w = promote(x, w)
+    return x @ w
+
+
 def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = matmul(x, p["w_up"])
     if "w_gate" in p:
-        up = F.silu(x @ p["w_gate"]) * up
+        up = F.silu(matmul(x, p["w_gate"])) * up
     else:
         up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return up @ p["w_down"]
+    return matmul(up, p["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,13 @@ frontend frames through an ``ENC_PATTERN`` encoder whose output every
 ``cross`` sublayer reads).  Modality frontends are stubs, as in the
 reference: batches carry precomputed embeddings under "frontend".
 
-Serving (``check_servable``) covers decoder-only models of ``attn`` and
-``mlp`` sublayers; the other kinds, encoder-decoder models, frontends and
-``first_dense_layers`` come with ROADMAP.md slice 4, part 3, and
-speculative ``verify_chunk`` with slice 5 (serving II).
+Serving (``check_servable``) covers decoder-only models of ``attn``,
+``mlp``, ``mla`` and ``moe`` sublayers, with or without the
+``first_dense_layers`` superblock, which runs ahead of the stack (and of
+the codec's cut) on its own unstacked cache and always on the gather read.
+The stateful and memory kinds, encoder-decoder models and frontends come
+with ROADMAP.md slice 4, part 3, and speculative ``verify_chunk`` with
+slice 5 (serving II).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from repro_torch.codecs.c3sl import sequence_group_decode, sequence_group_encode
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import tree_map
 from repro_torch.models import stack as stack_lib
-from repro_torch.models.layers import dense_init, embed_init, softmax_cross_entropy
+from repro_torch.models.layers import (dense_init, embed_init, matmul,
+                                       softmax_cross_entropy)
 from repro_torch.models.stack import _apply_norm, _init_norm
 from repro_torch.transport.link import roundtrip
 
@@ -56,8 +60,7 @@ def check_servable(cfg: ModelConfig):
     """Raise ``NotImplementedError`` for model features the serving entry
     points do not cover yet (they come with the next slice)."""
     for what, on in (("encoder-decoder models", cfg.is_encdec),
-                     ("modality frontends", bool(cfg.frontend)),
-                     ("first_dense_layers", bool(cfg.first_dense_layers))):
+                     ("modality frontends", bool(cfg.frontend))):
         if on:
             raise NotImplementedError(
                 f"{cfg.name}: serving {what} is not ported yet: it comes "
@@ -224,17 +227,22 @@ def lm_loss(params, batch, cfg: ModelConfig, *, codec=None, codec_params=None,
 
 def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
                       dtype=torch.float32, paged=None, device=None):
-    """Decode cache tree.  With ``paged`` (a PagedLayout) the attn leaves
-    are shared page pools and the cache carries the per-slot page tables
-    under "pages" (full-length caches) and "pages_swa" (sliding-window
-    rings): int32 (B, P) tensors of physical page ids.  ``device``
-    defaults to the params' device."""
+    """Decode cache tree.  With ``paged`` (a PagedLayout) the attn and mla
+    leaves are shared page pools and the cache carries the per-slot page
+    tables under "pages" (full-length caches) and "pages_swa"
+    (sliding-window rings): int32 (B, P) tensors of physical page ids.  The
+    first-dense superblock's cache is "first", with no superblock axis; its
+    pools share the "pages" table.  ``device`` defaults to the params'
+    device."""
     check_servable(cfg)
     if device is None:
         device = params["embed"].device
     cache: dict[str, Any] = {
         "stack": stack_lib.init_stack_cache(cfg, batch, length, dtype,
                                             paged=paged, device=device)}
+    if cfg.first_dense_layers:
+        cache["first"] = stack_lib.init_superblock_cache(
+            cfg, batch, length, dtype, paged=paged, device=device)
     if paged is not None:
         cache["pages"] = torch.zeros((batch, paged.pages_per_slot),
                                      dtype=torch.int32, device=device)
@@ -257,13 +265,18 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     contribution, so a dead slot's stale cache can never perturb live rows
     through cross-talk.  ``return_cut=True`` also returns the (B, d_model)
     cut-layer feature as it enters ``codec.encode`` (None without a codec).
-    ``kv_read="kernel"`` routes the paged GQA reads through the CUDA
-    paged-attention kernel.
+    ``kv_read="kernel"`` routes the stacked superblocks' paged GQA reads
+    through the CUDA paged-attention kernel; the first-dense superblock
+    stays on the gather read, as in the reference.
     """
     check_servable(cfg)
     h = params["embed"][tokens.long()]
     kw = dict(paged=paged, pages=cache.get("pages"),
-              pages_swa=cache.get("pages_swa"), live=live, kv_read=kv_read)
+              pages_swa=cache.get("pages_swa"), live=live)
+    if cfg.first_dense_layers:
+        h, _ = stack_lib.apply_superblock_decode(params["first"], cache["first"],
+                                                 cfg, h, pos, **kw)
+    kw["kv_read"] = kv_read
     cut = None
     if codec is None:
         h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"],
@@ -284,9 +297,10 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
         h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"],
                                             cfg, h, pos, start=n_cut, **kw)
     h = _apply_norm(cfg, params["final_norm"], h)
+    logits = matmul(h, params["head"])
     if return_cut:
-        return h @ params["head"], cache, cut
-    return h @ params["head"], cache
+        return logits, cache, cut
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +324,9 @@ def chunk_forward(params, cache, tokens, pos, cfg: ModelConfig, *,
     h = params["embed"][tokens.long()]
     kw = dict(paged=paged, pages=cache.get("pages"),
               pages_swa=cache.get("pages_swa"))
+    if cfg.first_dense_layers:
+        h, _ = stack_lib.apply_superblock_prefill(params["first"], cache["first"],
+                                                  cfg, h, pos, valid, **kw)
     cut_seq = None
     if codec is None:
         h, _ = stack_lib.apply_stack_prefill(params["stack"], cache["stack"],
@@ -345,4 +362,4 @@ def prefill_chunk(params, cache, tokens, pos, cfg: ModelConfig, *,
     last = torch.clamp(valid.sum(-1) - 1, min=0)
     h_last = h[torch.arange(B, device=h.device), last]            # (B,d)
     h_last = _apply_norm(cfg, params["final_norm"], h_last)
-    return h_last @ params["head"], cache
+    return matmul(h_last, params["head"]), cache

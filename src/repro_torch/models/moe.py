@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, apply_mlp, dense_init, init_mlp
+from repro_torch.models.layers import (_normal, apply_mlp, dense_init, init_mlp,
+                                       matmul, promote)
 
 # A list here receives, for every apply_moe call, the detached (kept
 # copies, all copies, aux loss) of that call; None records nothing.
@@ -68,7 +69,7 @@ def route(p, xf, *, top_k: int, capacity_factor: float):
     (E*cap,) each slot's copy (N*k where empty), and cap."""
     N = xf.shape[0]
     E = p["router"].shape[-1]
-    logits = (xf @ p["router"]).float()
+    logits = matmul(xf, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -101,9 +102,9 @@ def apply_moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     src = xf[:, None, :].expand(N, top_k, d).reshape(N * top_k, d)
     dispatched = _MoveRows.apply(src, r["slot_copy"], r["dest"]).reshape(E, cap, d)
 
-    h = F.silu(torch.bmm(dispatched, p["w_gate"]))
-    h = h * torch.bmm(dispatched, p["w_up"])
-    out_e = torch.bmm(h, p["w_down"])                          # (E, cap, d)
+    h = F.silu(torch.bmm(*promote(dispatched, p["w_gate"])))
+    h = h * torch.bmm(*promote(dispatched, p["w_up"]))
+    out_e = torch.bmm(*promote(h, p["w_down"]))                # (E, cap, d)
 
     gathered = _MoveRows.apply(out_e.reshape(E * cap, d), r["dest"],
                                r["slot_copy"])                 # (N*k, d)

@@ -16,8 +16,10 @@ memory, not numbers.
 
 Every sublayer kind trains (``TRAIN_KINDS``: attn, mla, mlp, moe, mamba,
 rwkv_tm, rwkv_cm, cross).  Serving (the decode cache, decode and chunked
-prefill) covers ``SERVE_KINDS`` (attn, mlp); the other kinds' decode and
-prefill come with ROADMAP.md slice 4, part 3, and raise
+prefill) covers ``SERVE_KINDS``: attn, mlp, mla (over its latent cache)
+and moe (at ``capacity_factor = num_experts``, so serving never drops a
+token copy).  The stateful and memory kinds' decode and prefill (mamba,
+rwkv_tm, rwkv_cm, cross) come with ROADMAP.md slice 4, part 3, and raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -35,7 +37,7 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
 
 TRAIN_KINDS = SUBLAYER_KINDS
-SERVE_KINDS = ("attn", "mlp")
+SERVE_KINDS = ("attn", "mlp", "mla", "moe")
 SERVING_SLICE = "ROADMAP.md slice 4, part 3"
 
 
@@ -126,11 +128,18 @@ def init_stack(rng: torch.Generator, cfg: ModelConfig, dtype):
 def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int, length: int,
                         dtype, *, paged=None, lead: tuple = (), device="cuda"):
     """One sublayer's decode cache.  With ``paged`` (a PagedLayout) the
-    attn leaves are shared page POOLS (num_pages, page_size, ...) instead
-    of per-slot (B, T, ...) strips."""
+    attn and mla leaves are shared page POOLS (num_pages, page_size, ...)
+    instead of per-slot (B, T, ...) strips; an mla pool is always the
+    full-length one (no ring) and never quantized."""
     check_servable_kind(kind)
+    if kind == "mla":
+        rows = (paged.num_pages, paged.page_size) if paged is not None \
+            else (batch, length)
+        return attn_lib.init_mla_cache(*rows, cfg.kv_lora_rank,
+                                       cfg.qk_rope_dim, dtype, lead=lead,
+                                       device=device)
     if kind != "attn":
-        return {}                      # mlp is stateless
+        return {}                      # mlp and moe are stateless
     kw = dict(dtype=dtype, quant=cfg.kv_cache_quant, lead=lead, device=device)
     if paged is not None:
         np_ = paged.num_pages_swa if cfg.sliding_window else paged.num_pages
@@ -158,8 +167,9 @@ def init_stack_cache(cfg: ModelConfig, batch: int, length: int, dtype, *,
 
 
 def _paged_args(kind: str, cfg: ModelConfig, paged, pages, pages_swa):
-    """(pages, length) kwargs for an attn sublayer: SWA attn caches use the
-    ring table + window length, everything else the full-length table."""
+    """(pages, length) kwargs for an attn or mla sublayer: SWA attn caches
+    use the ring table + window length, everything else the full-length
+    table."""
     if paged is None:
         return {"pages": None, "length": None}
     if kind == "attn" and cfg.sliding_window:
@@ -188,6 +198,13 @@ def _unstack(tree) -> list:
 # apply (train / prefill without a cache)
 # ---------------------------------------------------------------------------
 
+def _mla_args(cfg: ModelConfig) -> dict:
+    """MLA's config keyword arguments, shared by training and serving."""
+    return dict(num_heads=cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
+
+
 def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
                    memory=None, sliding_window=None):
     """Returns (residual_update, aux_loss); the aux loss is the MoE
@@ -202,12 +219,7 @@ def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
                                rope_theta=cfg.rope_theta,
                                sliding_window=sliding_window)
     elif kind == "mla":
-        y = attn_lib.apply_mla(p, x, positions, num_heads=cfg.num_heads,
-                               kv_lora_rank=cfg.kv_lora_rank,
-                               qk_nope_dim=cfg.qk_nope_dim,
-                               qk_rope_dim=cfg.qk_rope_dim,
-                               v_head_dim=cfg.v_head_dim,
-                               rope_theta=cfg.rope_theta,
+        y = attn_lib.apply_mla(p, x, positions, **_mla_args(cfg),
                                sliding_window=sliding_window)
     elif kind == "cross":
         y = attn_lib.apply_cross_attention(p, x, memory, num_heads=cfg.num_heads,
@@ -269,13 +281,30 @@ def apply_stack(stacked, cfg: ModelConfig, h, positions, *, memory=None,
 # decode (one token, stacked caches)
 # ---------------------------------------------------------------------------
 
+def _serve_ffn(kind: str, p, cfg: ModelConfig, x):
+    """A stateless sublayer's serving output.  A ``moe`` sublayer serves at
+    ``capacity_factor = num_experts`` (cap = top_k * N: no copy is ever
+    dropped, so every position is independent of its batch-mates); one
+    without a router is the first superblock's dense MLP."""
+    if kind == "moe" and "router" in p:
+        return moe_lib.apply_moe(p, x, top_k=cfg.experts_per_token,
+                                 capacity_factor=float(cfg.num_experts))[0]
+    return apply_mlp(p, x)
+
+
 def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
                           paged=None, pages=None, pages_swa=None, live=None,
                           kv_read="gather"):
     check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
-    if kind == "mlp":
-        return apply_mlp(p, x), cache
+    if kind in ("mlp", "moe"):
+        return _serve_ffn(kind, p, cfg, x), cache
+    if kind == "mla":
+        # kv_read="kernel" reaches GQA decode only: the latents stay on the
+        # gather read, as in the reference (the engine warns about it)
+        return attn_lib.apply_mla_decode(
+            p, x, cache, pos, live=live,
+            **_mla_args(cfg), **_paged_args(kind, cfg, paged, pages, pages_swa))
     return attn_lib.apply_gqa_decode(
         p, x, cache, pos, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
@@ -324,8 +353,12 @@ def apply_sublayer_prefill(kind: str, p, cache, cfg: ModelConfig, h, pos,
     valid (B,C) marks real tokens.  Returns (residual update, cache)."""
     check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
-    if kind == "mlp":
-        return apply_mlp(p, x), cache
+    if kind in ("mlp", "moe"):
+        return _serve_ffn(kind, p, cfg, x), cache
+    if kind == "mla":
+        return attn_lib.apply_mla_prefill(
+            p, x, cache, pos, valid,
+            **_mla_args(cfg), **_paged_args(kind, cfg, paged, pages, pages_swa))
     return attn_lib.apply_gqa_prefill(
         p, x, cache, pos, valid, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,

@@ -22,8 +22,10 @@ KV layouts (``kv_layout``): ``"contiguous"`` per-slot strips, or
 host-side FIFO page reservation (``repro_torch.serving.paging``).  Paged
 reads (``kv_read``): ``"gather"`` builds the contiguous view;
 ``"kernel"`` walks the page table in the CUDA paged-attention kernel for
-every decode read (its plain version on the CPU).  Chunked-prefill reads
-stay on the gather read, and the engine says so loudly at construction.
+every stacked GQA decode read (its plain version on the CPU).  MLA latent
+reads, the first-dense superblock and chunked-prefill reads stay on the
+gather read, and the engine says so loudly at construction, in the
+reference's words.
 ``stats["kv_read_execution_mode"]`` reports how the paged read really
 runs: ``"cuda-kernel"``, ``"torch-plain"`` or ``"gather"``.
 
@@ -42,6 +44,11 @@ SNR probe in the step: drive the controller with ``observe_snr`` or pin it
 Per-direction link specs (``codec="c3sl:R=8|int8 >> bwd:c3sl:R=4"``): serving
 is forward-only, so the engine serves the link's forward channel
 (``wire_bytes_fwd`` == ``payload_wire_bytes``, ``wire_bytes_bwd`` == 0).
+
+Models: every kind ``lm.check_servable`` admits (attn, mlp, mla, moe, with
+or without the first-dense superblock).  MLA latents draw their pages from
+the full-length pool, and a recycled slot's rows are zeroed by cache key
+("stack", "first"), as in the reference.
 
 Not ported yet, and raising ``NotImplementedError`` here: the legacy
 ``prefill_mode="decode"``, ``preemption``, ``spec_decode`` (and a link's
@@ -174,11 +181,18 @@ class BatchedEngine:
                     f"but block_pattern {cfg.block_pattern!r} has no attn "
                     "sublayer — every cache read would silently stay on the "
                     "gather path; use kv_read='gather'")
-            # loud by design: the chunked-prefill reads stay on gather_pages
+            # loud by design: the reads the kernel does not cover stay on
+            # gather_pages (the reference's text, in its order)
+            fallbacks = []
+            if "mla" in kinds:
+                fallbacks.append("MLA latent reads")
+            if cfg.first_dense_layers:
+                fallbacks.append("the unstacked first-dense superblock")
+            fallbacks.append("chunked-prefill reads")
             warnings.warn(
-                "kv_read='kernel': chunked-prefill reads stay on the gather "
-                "read path (the kernel covers stacked GQA decode only)",
-                stacklevel=2)
+                "kv_read='kernel': " + ", ".join(fallbacks) + " stay on the "
+                "gather read path (kernel tier covers stacked GQA decode "
+                "only)", stacklevel=2)
         lm_lib.check_servable(cfg)
         self.codec = codec
         self.codec_params = codec_params
@@ -201,8 +215,10 @@ class BatchedEngine:
 
         self.paged: PagedLayout | None = None
         self.allocator: PageAllocator | None = None
-        # only attn without a sliding window draws from the full-length pool
-        self._linear_backed = "attn" in kinds and not cfg.sliding_window
+        # which caches draw from the full-length pool: MLA latents always,
+        # attn only without a sliding window (SWA rings own static pages)
+        self._linear_backed = ("mla" in kinds
+                               or ("attn" in kinds and not cfg.sliding_window))
         if kv_layout == "paged":
             len_swa = min(max_len, cfg.sliding_window) if cfg.sliding_window else 0
             pps = -(-max_len // page_size)
@@ -217,17 +233,23 @@ class BatchedEngine:
             self._table = np.zeros((num_slots, pps), np.int32)
         # As in the reference, a float KV cache is float32 whatever the
         # weights' dtype (int8 values with float32 scales under
-        # kv_cache_quant).  The reference's decode and prefill then promote
-        # a narrower model's residual stream to float32 mid-stack, which its
-        # scan over superblocks rejects: it serves such a model only with
-        # kv_cache_quant, and so does the port.
-        if ("attn" in kinds and not cfg.kv_cache_quant
+        # kv_cache_quant; the MLA latents are never quantized).  A read of a
+        # float32 cache promotes a narrower model's residual stream to
+        # float32.  The reference's scan over superblocks rejects a
+        # superblock that changes the stream's dtype, unless the
+        # first-dense superblock, ahead of the scan, has promoted it
+        # already.  The port serves what the reference serves, promoting as
+        # JAX does, and refuses the rest.
+        float_cache = "mla" in kinds or ("attn" in kinds
+                                         and not cfg.kv_cache_quant)
+        if (float_cache and not cfg.first_dense_layers
                 and params["embed"].dtype != torch.float32):
             raise NotImplementedError(
                 f"a {params['embed'].dtype} model over a float KV cache: the "
                 "cache is float32, and the reference engine does not serve "
-                "this combination either; use float32 weights or "
-                "kv_cache_quant=True")
+                "this combination either; use float32 weights, "
+                "kv_cache_quant=True (attn caches) or a first-dense "
+                "superblock")
         self.cache = lm_lib.init_decode_cache(params, cfg, num_slots, max_len,
                                               paged=self.paged)
         if self.paged is not None:
@@ -647,15 +669,20 @@ class BatchedEngine:
             self._reset_rows(admitted)
 
     def _reset_rows(self, rows: list[int]):
-        """Zero the admitted slots' per-slot cache rows.  Paged pools are
-        left alone: reads past a slot's written positions are masked, so
-        stale pages are invisible (and the ported kinds keep no per-slot
-        recurrent state)."""
-        if self.paged is not None:
-            return
+        """Zero the admitted slots' per-slot cache rows, as the reference's
+        reset: the layout is known by key, never guessed from a shape
+        ("stack" leaves carry (num_superblocks, B, ...), "first" leaves
+        (B, ...)).  Paged attn and mla pools are left alone: reads past a
+        slot's written positions are masked, so stale pages are
+        invisible."""
         idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-        for leaf in tree_leaves(self.cache["stack"]):
-            leaf[:, idx] = 0
+        for key, axis in (("stack", 1), ("first", 0)):
+            for name, sub in self.cache.get(key, {}).items():
+                if (self.paged is not None
+                        and name.rsplit("_", 1)[-1] in ("attn", "mla")):
+                    continue
+                for leaf in tree_leaves(sub):
+                    leaf.index_fill_(axis, idx, 0)
 
     # ------------------------------------------------------------------
     # page bookkeeping (host side; no-ops for the contiguous layout)

@@ -23,10 +23,13 @@ BF16_REL_MAX, BF16_REL_L2 = 1e-2, 5e-3
 SHAPES = [(1, 1, 64), (3, 5, 96), (16, 16, 128), (16, 4, 2048), (4, 3, 127),
           (2, 2, 4097)]
 # the FFT kernels' edges: R 1, 5, 8, 9, 16 (bind's cluster is min(R, 8)
-# blocks); G 1, 2, 128; D from 4 to the route's upper limit
+# blocks); G 1, 2, 128; D from 4 to the route's upper limit; and the
+# serving cut of deepseek-v2-lite-16b (D 2048) at a decode step and a
+# prefill chunk
 FFT_SHAPES = [(2, 1, 2048), (2, 5, 2048), (2, 8, 2048), (2, 9, 2048),
               (2, 16, 4096), (1, 4, 4096), (2, 4, 4096), (128, 4, 4096),
-              (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384)]
+              (3, 2, 4), (2, 3, 8), (2, 2, 16), (3, 2, 32), (1, 3, 16384),
+              (2, 4, 2048), (128, 4, 2048)]
 # the four-step kernels against the plain version past shared memory (its
 # gather runs in chunks there), and at the LM training shape (G = B/R = 4,
 # R 4, D = 128 * 4096) against a float64 torch.fft oracle

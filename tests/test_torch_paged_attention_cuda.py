@@ -141,6 +141,16 @@ def test_main_path_shape_matches_plain(dev):
     assert_close(got, want, torch.float32)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_gqa_serving_shape_matches_plain(dev, quant):
+    """B 8, T 512, ps 16, 32 heads over KV 8, hd 128: phi3.5-moe-42b-a6.6b's
+    full-width serving read (float32 pools; int8 pools in bfloat16)."""
+    case = make_case(8, 16, 32, 8, 128, 512, quant=quant, seed=11)
+    dtype = torch.bfloat16 if quant else torch.float32
+    got, want, _ = run_pair(case, dtype, quant=quant)
+    assert_close(got, want, dtype)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     case = make_case(2, 8, 4, 2, 16, 16)
     q, k, v, tab, pos = (case[n] for n in ("q", "k", "v", "table", "pos"))

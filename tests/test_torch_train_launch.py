@@ -151,6 +151,18 @@ def test_run_standard_other_families_match_reference(arch, monkeypatch):
     assert fe.device.type == "cpu" and not fe.any()
 
 
+def test_vlm_with_a_codec_raises_in_both_packages():
+    """ROADMAP.md C7, shared by both packages: each run_standard makes the codec
+    at D = seq * d_model, but a VLM's cut carries the frontend positions
+    too, (frontend_seq + seq) * d_model, so reduced pixtral-12b (8 + 8
+    positions of 256) cannot train with a codec through run_standard.
+    The port keeps the reference's behaviour."""
+    args = _args("--steps", "1", "--arch", "pixtral-12b", "--codec", "c3sl:R=4")
+    for pkg in ("ref", "port"):
+        with pytest.raises(ValueError, match="feature dim 4096 != codec D=2048"):
+            _run(pkg, args)
+
+
 def test_adaptive_schedule_walks_and_matches_reference():
     """The Adaptive-R controller walks the ladder over eight steps (more
     than one bucket serves), and the served schedule is the reference's."""
