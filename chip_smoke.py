@@ -23,7 +23,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      4 to 32, the route's upper limit 16384, and 28672 = 2^12 7, which goes
      direct), every (G, R) the control plane's (R_fwd, R_bwd) programs
      launch (phase 5) at D 2048 and 4096, phase 13's cut at D 2048 (2, 4,
-     2048) and (128, 4, 2048), the mixed-radix one-pass kernels
+     2048) and (128, 4, 2048), phase 14's at D 1024 and 256 (G 2 and 128),
+     the mixed-radix one-pass kernels
      at the serving widths 5120 and 12288 (G 2 a decode step, 128 a prefill
      chunk) and their edges (D 12, 160, 960, 15360, 16200), the four-step
      kernels at (1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440)
@@ -43,8 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      tests/test_paged_kernel.py (shuffled
      tables, spare pages, staggered positions, a dead slot, lengths 16, 17
      and 23 at page size 8), the serving run's shape (B 8, T 512, page
-     size 16, 32 kv heads, head dim 128) and phase 13's (32 heads over 8
-     kv heads), GQA groups 4 and 16, the
+     size 16, 32 kv heads, head dim 128), phase 13's and phase 14's
+     pixtral-12b's (32 heads over 8 kv heads) and phase 14's reduced
+     jamba's (4 heads over 2 kv heads of 64), GQA groups 4 and 16, the
      ring mask with wrapped positions, and the split-K edges (one admitted
      row, a prefix of one chunk of the plan and of one chunk + 1, slots
      whose later chunks are empty, T 4096, chunks over which the tile ring
@@ -231,6 +233,41 @@ Phases (any failure exits non-zero, and no result line is printed):
       then bfloat16 weights over an int8 KV cache, 8 requests of 128 + 16,
       8 int8 launches a decode step.
 
+14. Serving the stateful and memory families, after ``free_cuda()``, at
+   phase 4's settings (float32, TF32 off, 8 slots, max_len 512, page size
+   16, chunk 64, ``sync_every`` 8, greedy, ``c3sl:R=4,backend=pallas`` at
+   the stack midpoint, D = d_model, random weights and frames from the
+   seed, 16 requests of 128 + 32 tokens; only depth and request counts are
+   cut).  For each arch: the served logits (``prefill_chunk`` over
+   staggered prompts, then 3 teacher-forced ``decode_step`` calls, no
+   codec) against ``lm_forward`` within 2e-3 of max|logit| (a VLM against
+   its text-only forward, as it is served text-only); one sublayer's
+   decode and 64-token prefill times for each recurrent kind and
+   ``cross``; the cache bytes equal to the count from the config (the
+   recurrent state and the memory included); every engine run held as in
+   phase 13 (bind and unbind once per decode step at (2, 4, D) and once
+   per prefill chunk at (128, 4, D), on the FFT route; the exact wire
+   bytes; the paged kernel once per attn layer a decode step under the
+   kernel read) and by its pages drawn; the decode-step time and profile
+   of an 8-step window; tokens/s, mean TTFT, the profiled prefill chunk's
+   device kernels, the peak memory.
+   a. ``rwkv6-1.6b`` at full width and depth (1.58 B parameters), D 2048:
+      paged and contiguous, greedy tokens equal, no page drawn.
+   b. ``seamless-m4t-large-v2`` at full width and depth (24 + 24 layers),
+      D 1024: the engine refuses it (``ValueError``); the lockstep loop
+      through ``launch/serve.py`` (its own weights and frames, 8 rows, 32
+      steps; bind and unbind once a step at (2, 4, 1024), the CLI's wire
+      bytes exact); the lockstep decode step's time and profile, the
+      encoder at cache init.
+   c. ``jamba-1.5-large-398b`` at ``reduced()`` size (as phase 12), D 256:
+      phase 4's kernel-against-gather checks, kernel and gather reads paged
+      and the gather read contiguous, greedy tokens paged == contiguous,
+      each request's 10 pages drawn.
+   d. ``pixtral-12b`` at full width, 8 of 40 layers (3.5 B parameters),
+      served text-only, D 5120 on the mixed-radix one-pass kernels (their
+      only main-path launches: the record's count must equal these runs'
+      steps and chunks): phase 4's kernel-against-gather checks.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -308,10 +345,16 @@ DIRECT_SHAPES = [(16, 4, 2048), (16, 4, 4096)]
 # phi3.5-moe-42b-a6.6b's, at D 4096, are FFT_EDGE_SHAPES' (2, 4, 4096) and
 # (128, 4, 4096)
 FAMILY_SERVE_SHAPES = [(2, 4, 2048), (128, 4, 2048)]
+# phase 14's new cuts: a decode step (G 2) and a 64-token prefill chunk (G
+# 128) at seamless-m4t-large-v2's D 1024 and reduced jamba's 256
+# (rwkv6-1.6b's 2048 are FAMILY_SERVE_SHAPES', pixtral-12b's 5120
+# MIXED_SERVE_SHAPES')
+STATE_SERVE_SHAPES = [(2, 4, 1024), (128, 4, 1024), (2, 4, 256), (128, 4, 256)]
 # phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
 # circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
-TIME_SHAPES = [(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
-               (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES + FAMILY_SERVE_SHAPES
+TIME_SHAPES = ([(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
+                (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES
+               + FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES)
 TOL = {"float32": 1e-5}
 # bfloat16 outputs are rounded once, by half an ulp (at most 2^-8 of the
 # element, 2^-8/sqrt(3) in RMS), so their limits scale with the compared
@@ -328,7 +371,10 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, 128, 32
 QUANT_REQUESTS, QUANT_NEW = 8, 16
 MAIN_PAGED = dict(B=8, ps=16, H=32, KV=32, hd=128, length=512)
 # phase 13's GQA decode read: phi3.5-moe-42b-a6.6b's 32 heads over 8 KV heads
+# (phase 14's pixtral-12b reads the same geometry); phase 14's reduced
+# jamba: 4 heads over 2 KV heads of 64
 KV8_PAGED = dict(MAIN_PAGED, KV=8)
+JAMBA_PAGED = dict(MAIN_PAGED, H=4, KV=2, hd=64)
 LOGIT_TOL = 1e-3            # teacher-forced kernel vs gather, of max|logit|
 SLEEP_CYCLES = 10_000_000   # about 5 ms: the host enqueues the timed calls
 
@@ -392,6 +438,26 @@ FAMILY_TIMED_STEPS = 5
 # experts top-2): 8 of its 32 layers (10.66 B params, 42.6 GB; all 32 would
 # take 168 GB, past one card), the codec after layer 4 at D 4096.
 FAMILY_SERVE = [("deepseek-v2-lite-16b", 5), ("phi3.5-moe-42b-a6.6b", 8)]
+# phase 14, serving the stateful and memory families at phase 4's settings:
+# (run, arch, the depth it runs at (None: the arch's own), reduced()).
+# a. rwkv6-1.6b at full width and depth (1.58 B params, 6.3 GB), through the
+# engine; b. seamless-m4t-large-v2 at full width and depth, through the
+# lockstep loop (launch/serve.py without --engine: the engine refuses an
+# encoder-decoder model, as the reference's fails on one); c.
+# jamba-1.5-large-398b REDUCED, as phase 12 (one full-width superblock holds
+# over 40 B params, past one card); d. pixtral-12b at full width, 8 of its
+# 40 layers (3.5 B params, 14 GB; all 40 take about 50 GB), served text-only
+# as the reference serves a VLM
+STATE_SERVE = [("a", "rwkv6-1.6b", None, False),
+               ("b", "seamless-m4t-large-v2", None, False),
+               ("c", "jamba-1.5-large-398b", None, True),
+               ("d", "pixtral-12b", 8, False)]
+# served logits against lm_forward for a model with a recurrent sublayer
+# (the recurrent step against the chunked training scans, over 24 layers at
+# full width): of max|logit|, the reference's own 2e-3
+# (tests/test_arch_smoke.py); any other model is held to LOGIT_TOL
+STATE_LOGIT_TOL = 2e-3
+LOCKSTEP_STEPS = 32         # run b's decode steps through the serve CLI
 
 
 class SmokeFailure(RuntimeError):
@@ -538,7 +604,8 @@ def kernel_checks(dev) -> dict:
     errs = {k + sfx: {} for sfx in ("", "_mixed", "_fft4", "_direct")
             for k in ("bind_superpose", "unbind")}
     routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()
-                                + FAMILY_SERVE_SHAPES + MIXED_SHAPES + FFT4_SHAPES
+                                + FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES
+                                + MIXED_SHAPES + FFT4_SHAPES
                                 + FFT4_EDGE_SHAPES + LM_SHAPES))
     # errors kept by kernel: the power-of-two one-pass kernels', the
     # mixed-radix ones', the four-step ones' and the direct ones' apart
@@ -730,6 +797,7 @@ def paged_kernel_checks(dev) -> dict:
               for n in (16, 17, 23)]
     shapes.append(("main", MAIN_PAGED, None))
     shapes.append(("kv8", KV8_PAGED, None))
+    shapes.append(("jamba", JAMBA_PAGED, None))
     shapes += [(f"groups{g}", dict(B=4, ps=16, H=2 * g, KV=2, hd=128,
                                    length=100), None) for g in (4, 16)]
     # the ring: T = the window, positions past T have wrapped
@@ -901,11 +969,13 @@ def run_steps(model: str, spec: str, steps: int, dev) -> dict:
 # phase 4: the serving path
 # --------------------------------------------------------------------------
 
-def serve_model(dtype, dev, quant=False, arch=SERVE_ARCH, layers=None):
-    """``arch`` at full width, its depth cut to ``layers`` (None: deepseek-7b
-    at its full 30), random weights from the seed."""
+def serve_model(dtype, dev, quant=False, arch=SERVE_ARCH, layers=None,
+                small=False):
+    """``arch`` at full width, its depth cut to ``layers`` (None: the arch's
+    own), or at ``reduced()`` size with ``small``; random weights from the
+    seed."""
     from repro_torch.models import lm as lm_lib
-    cfg = lm_config(arch, layers)
+    cfg = lm_config(arch, layers, small)
     if quant:
         cfg = dataclasses.replace(cfg, kv_cache_quant=True)
     return cfg, lm_lib.init_lm_params(SEED, cfg, dtype=dtype, device=dev)
@@ -977,6 +1047,15 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
     from repro_torch.models import moe
     from repro_torch.serving.engine import Request
     eng = make_engine(params, cfg, kv_read, **over)
+    drawn = []
+    if eng.allocator is not None:
+        alloc = eng.allocator.alloc
+
+        def counted_alloc(n):
+            got = alloc(n)
+            drawn.append(len(got or ()))
+            return got
+        eng.allocator.alloc = counted_alloc
     prompts = serve_prompts(n_req, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1009,7 +1088,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
                                            for r in done) * 1e3,
            "finite_logits": finite[0], "launches": counts,
            "route_launches": routes, "record_launches": by_kernel,
-           "shape_launches": shapes, "outs": outs,
+           "shape_launches": shapes, "outs": outs, "pages_drawn": sum(drawn),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            **{k: st[k] for k in ("decode_steps", "prefill_chunks", "dispatches",
                                  "wire_bytes_fwd", "kv_read_execution_mode",
@@ -1242,26 +1321,37 @@ def moe_layers(cfg) -> int:
 
 
 def analytic_cache_bytes(cfg, kv_layout: str) -> int:
-    """The float32 cache bytes the engine must hold, from the config alone:
-    per cached position and layer, (kv_lora + rope) values for an mla
-    sublayer and K and V (KV heads x head dim) for an attn one, the
-    first-dense superblock included; num_slots x max_len positions
-    (contiguous) or the fully provisioned pool's pages x page size, plus
-    its int32 page table (paged)."""
+    """The float32 cache bytes the engine (or the lockstep loop) must hold,
+    from the config alone: per cached position and layer, (kv_lora + rope)
+    values for an mla sublayer and K and V (KV heads x head dim) for an attn
+    one, the first-dense superblock included, over num_slots x max_len
+    positions (contiguous) or the fully provisioned pool's pages x page
+    size, plus its int32 page table (paged); per slot and layer, the
+    recurrent state on either layout (Mamba's h, d_inner x d_state, and its
+    d_conv - 1 conv inputs; RWKV's H x hd x hd wkv and d_model token shift
+    a sublayer); and an encoder-decoder model's memory, frontend_seq x
+    d_model a slot."""
     B, T, ps = (SERVE_ENGINE[k] for k in ("num_slots", "max_len", "page_size"))
     per = {"mla": (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4,
            "attn": 2 * cfg.num_kv_heads * cfg.head_dim_ * 4}
+    hd = cfg.d_model // cfg.num_heads
+    state = {"mamba": (cfg.d_state + cfg.d_conv - 1) * cfg.d_inner * 4,
+             "rwkv_tm": (cfg.num_heads * hd * hd + cfg.d_model) * 4,
+             "rwkv_cm": cfg.d_model * 4}
+    kinds = [k for layer in cfg.block_pattern for k in layer]
     layers = cfg.num_superblocks + (1 if cfg.first_dense_layers else 0)
-    per_pos = layers * sum(per.get(k, 0) for layer in cfg.block_pattern
-                           for k in layer)
+    per_pos = layers * sum(per.get(k, 0) for k in kinds)
+    fixed = B * layers * sum(state.get(k, 0) for k in kinds)
+    if cfg.is_encdec:
+        fixed += B * cfg.frontend_seq * cfg.d_model * 4
     if kv_layout == "contiguous":
-        return B * T * per_pos
+        return B * T * per_pos + fixed
     pps = -(-T // ps)
-    return B * pps * ps * per_pos + B * pps * 4
+    return B * pps * ps * per_pos + B * pps * 4 + fixed
 
 
 def check_family_run(rec, cfg):
-    """What a phase 13 engine run must show: bind and unbind once per decode
+    """What a phase 13 or 14 engine run must show: bind and unbind once per decode
     step at (G, R, D) = (num_slots / 4, 4, d_model) and once per prefill
     chunk at (chunk x G, 4, d_model), every one on the FFT route (none
     direct); the wire bytes exactly those payloads (float32, G x D a step,
@@ -1281,10 +1371,11 @@ def check_family_run(rec, cfg):
     wire = (steps * G + chunks * C * G) * D * 4
     check(rec["wire_bytes_fwd"] == wire,
           f"{what}: wire bytes {rec['wire_bytes_fwd']}, want {wire}")
-    check(rec["moe_calls"] == moe_layers(cfg) * (steps + chunks)
-          and rec["moe_dropped"] == 0,
-          f"{what}: {rec['moe_calls']} MoE calls ({moe_layers(cfg)} layers x "
-          f"{steps + chunks} calls), {rec['moe_dropped']} copies dropped")
+    if cfg.num_experts:
+        check(rec["moe_calls"] == moe_layers(cfg) * (steps + chunks)
+              and rec["moe_dropped"] == 0,
+              f"{what}: {rec['moe_calls']} MoE calls ({moe_layers(cfg)} layers "
+              f"x {steps + chunks} calls), {rec['moe_dropped']} copies dropped")
     name, other = (("paged_attention_quant", "paged_attention")
                    if cfg.kv_cache_quant else
                    ("paged_attention", "paged_attention_quant"))
@@ -1296,21 +1387,49 @@ def check_family_run(rec, cfg):
           f"{what}: codec ran as {rec['codec_execution_mode']}")
 
 
-def lm_forward_parity(params, cfg, dev, steps=3) -> dict:
+def profiled_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (device activity only, so
+    a call of 100,000 launches is cheap to read back): its device time, the
+    device kernels it launched and its wall time (profiled, so inflated by
+    the profiler), synchronised."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = launches = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            busy += e.self_device_time_total / 1e3
+            launches += e.count
+    return out, {"device_ms": busy, "device_launches": launches,
+                 "wall_ms_profiled": wall}
+
+
+def lm_forward_parity(params, cfg, dev, steps=3, frontend=None,
+                      tol=LOGIT_TOL) -> dict:
     """Teacher-forced serving against the training forward on the same
     tokens: 8 rows of staggered prompt lengths (128 down to 72) through
     ``prefill_chunk`` (paged, a shuffled page table), then ``steps``
     ``decode_step`` calls, each fed the next token of each row; every
     call's logits against ``lm_forward``'s at the same positions, within
-    LOGIT_TOL of max|logit|.  No codec on either side: the training cut
+    ``tol`` of max|logit|.  No codec on either side: the training cut
     groups whole sequences (D = S x d_model), the serving cut slots at one
-    position.  ``lm_forward`` runs at capacity_factor = num_experts, the
-    serving capacity (at the training 1.25 it drops copies and cannot
-    match).  Each MoE call's routing is kept, so the record counts the
-    (layer, row, position) decisions where serving picked other experts
-    than ``lm_forward`` (a near-tie in the router that float32 rounding
-    flips), the rows they fall in, and the largest gap of the rows with
-    none.  Also times each prefill chunk (host clock, synchronised)."""
+    position.  An encoder-decoder model's cache and forward read the same
+    ``frontend`` frames; a VLM is served text-only, so it is held against
+    the text-only forward (no patch embeddings in front).  With experts,
+    ``lm_forward`` runs at capacity_factor = num_experts, the serving
+    capacity (at the training 1.25 it drops copies and cannot match), and
+    each MoE call's routing is kept, so the record counts the (layer, row,
+    position) decisions where serving picked other experts than
+    ``lm_forward`` (a near-tie in the router that float32 rounding flips),
+    the rows they fall in, and the largest gap of the rows with none.
+    Times the first prefill chunk (host clock, synchronised) and profiles
+    the second: its device time and device kernel count."""
     import torch
     from repro_torch.models import lm as lm_lib
     from repro_torch.models import moe
@@ -1329,20 +1448,30 @@ def lm_forward_parity(params, cfg, dev, steps=3) -> dict:
         return r
 
     def taken(shape):
+        if not L:
+            routes.clear()
+            return torch.zeros((0, *shape, k), dtype=torch.long, device=dev)
         out = torch.stack(routes).reshape(L, *shape, k)
         routes.clear()
         return out
 
+    fwd_cfg = cfg
+    if cfg.num_experts:
+        fwd_cfg = dataclasses.replace(fwd_cfg,
+                                      capacity_factor=float(cfg.num_experts))
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["frontend"] = frontend
+    elif cfg.frontend:
+        fwd_cfg = dataclasses.replace(fwd_cfg, frontend=None)
     moe.route = spy
     try:
         with torch.no_grad():
-            want, _ = lm_lib.lm_forward(
-                params, {"tokens": toks},
-                dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)),
-                remat=False)
+            want, _ = lm_lib.lm_forward(params, batch, fwd_cfg, remat=False)
         ref = taken((B, S))
         layout = PagedLayout(ps, T, B * T // ps)
-        cache = lm_lib.init_decode_cache(params, cfg, B, T, paged=layout)
+        cache = lm_lib.init_decode_cache(params, cfg, B, T, paged=layout,
+                                         frontend_emb=frontend)
         cache["pages"] = torch.from_numpy(
             rng.permutation(B * T // ps).astype(np.int32).reshape(B, -1)).to(dev)
         lens = torch.tensor([max(SERVE_PROMPT - 8 * b, 1) for b in range(B)],
@@ -1350,19 +1479,25 @@ def lm_forward_parity(params, cfg, dev, steps=3) -> dict:
         rows = torch.arange(B, device=dev)
         pos = torch.zeros((B,), dtype=torch.int32, device=dev)
         flips = torch.zeros((L, B), dtype=torch.long, device=dev)
-        row_gaps, chunk_ms = [], []
+        row_gaps, chunk_ms, chunk_prof = [], [], None
 
         def row_gap(got, want_):
             return (got - want_).abs().amax(-1) / want_.abs().max()
 
         for c0 in range(0, SERVE_PROMPT, C):
             valid = (c0 + torch.arange(C, device=dev))[None, :] < lens[:, None]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, _ = lm_lib.prefill_chunk(params, cache, toks[:, c0:c0 + C],
-                                             pos, cfg, valid=valid, paged=layout)
-            torch.cuda.synchronize()
-            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+
+            def chunk():
+                return lm_lib.prefill_chunk(params, cache, toks[:, c0:c0 + C],
+                                            pos, cfg, valid=valid, paged=layout)
+            if c0 == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = chunk()
+                torch.cuda.synchronize()
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                (logits, _), chunk_prof = profiled_call(chunk)
             flips += ((taken((B, C)) != ref[:, :, c0:c0 + C]).any(-1)
                       & valid).sum(-1)
             pos = pos + valid.sum(-1).to(torch.int32)
@@ -1381,149 +1516,394 @@ def lm_forward_parity(params, cfg, dev, steps=3) -> dict:
     clean = row_gaps[:, ~flipped]
     del cache, want
     free_cuda()
-    check(max(gaps) <= LOGIT_TOL, f"{cfg.name}: served logits vs lm_forward: "
-          f"gaps {gaps} of max|logit| > {LOGIT_TOL}")
-    return {"steps": steps, "gap_of_max_logit": gaps,
+    check(max(gaps) <= tol, f"{cfg.name}: served logits vs lm_forward: "
+          f"gaps {gaps} of max|logit| > {tol}")
+    return {"steps": steps, "gap_of_max_logit": gaps, "tol": tol,
             "routing_flips": int(flips.sum()),
             "rows_with_flips": flipped.nonzero()[:, 0].tolist(),
             "gap_rows_without_flips": (float(clean.max()) if clean.numel()
                                        else None),
-            "prefill_chunk_ms": chunk_ms, "prompt_lens": lens.tolist()}
+            "prefill_chunk_ms": chunk_ms, "prefill_chunk_profile": chunk_prof,
+            "prompt_lens": lens.tolist()}
 
 
-def family_serving(dev, arch: str, layers: int) -> dict:
-    """Phase 13 for one arch at full width, depth cut to ``layers``, through
-    the engine at phase 4's settings.  Without an attn sublayer
-    (deepseek-v2-lite-16b) kv_read="kernel" must raise ValueError, and the
-    paged gather run's greedy tokens must equal the contiguous run's.  With
-    one (phi3.5-moe-42b-a6.6b), phase 4's kernel-against-gather checks, then
-    bfloat16 weights over int8 KV through the int8 kernel.  Every run is
-    held by ``check_family_run``; the served logits by
-    ``lm_forward_parity``; the cache bytes against ``analytic_cache_bytes``;
-    the first engine's decode window is timed and profiled."""
+# --------------------------------------------------------------------------
+# phase 14: serving the stateful and memory families (and phase 13's
+# attention-cache families, through the same serve_family)
+# --------------------------------------------------------------------------
+
+def state_frames(cfg, dev, batch=None):
+    """Random frames for a modality frontend, from the seed on the card
+    (the serve CLI's draw); None without a frontend."""
+    import torch
+    if not cfg.frontend:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return torch.randn((batch or SERVE_ENGINE["num_slots"], cfg.frontend_seq,
+                        cfg.frontend_dim), generator=gen, device=dev)
+
+
+def layer_times(params, cfg, dev, frontend=None) -> dict:
+    """One sublayer's serving call at 8 slots on superblock 0's weights and
+    a copy of a fresh cache: each recurrent kind's decode step and
+    ``cross`` over the memory (its K and V recomputed every call, as in the
+    reference), device time and host included; their prefill over a
+    64-token chunk (the recurrent kinds' position loop) and an
+    encoder-decoder model's encoder at cache init, host included (no sleep
+    can hide the host there: thousands of launches, or allocations that
+    synchronise).  Empty for a model with none of them."""
+    import torch
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import stack as stack_lib
+    timed = stack_lib.RECURRENT_KINDS + ("cross",)
+    if not any(k in timed for layer in cfg.block_pattern for k in layer):
+        return {}
+    B, T, C = (SERVE_ENGINE[k] for k in ("num_slots", "max_len", "chunk_size"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    if cfg.is_encdec:
+        enc = lambda: lm_lib._run_encoder(params, cfg, frontend,  # noqa: E731
+                                          remat=False)
+        out["encoder_at_cache_init"] = {
+            "ms_host_included": cuda_ms(enc, warmup=1, calls=1, reps=3,
+                                        hide_host=False),
+            "frames": list(frontend.shape)}
+        memory = enc()
+    else:
+        memory = None
+    cache = lm_lib.init_decode_cache(params, cfg, B, T, frontend_emb=frontend)
+    pos = torch.full((B,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    done = set()
+    for key, p in stack_lib._index(params["stack"], 0).items():
+        kind = key.split("_", 2)[2]
+        if kind in done or kind not in timed:
+            continue
+        done.add(kind)
+        c = {n: t.clone() for n, t in stack_lib._index(cache["stack"], 0)[key].items()}
+        h1 = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
+        hC = torch.randn((B, C, cfg.d_model), generator=gen, device=dev)
+
+        def dec(kind=kind, p=p, c=c):
+            return stack_lib.apply_sublayer_decode(kind, p, c, cfg, h1, pos,
+                                                   memory=memory, live=live)
+
+        def pre(kind=kind, p=p, c=c):
+            return stack_lib.apply_sublayer_prefill(kind, p, c, cfg, hC, pos,
+                                                    valid, memory=memory)
+        out[kind] = {"decode_ms": cuda_ms(dec),
+                     "decode_ms_host_included": cuda_ms(dec, hide_host=False),
+                     "prefill_chunk_ms_host_included": cuda_ms(
+                         pre, warmup=1, calls=1, reps=3, hide_host=False)}
+    del cache, memory
+    free_cuda()
+    return out
+
+
+def lockstep_run(cfg, dev) -> dict:
+    """Run b: ``launch/serve.py`` without ``--engine`` (its own full-width
+    weights and frames from the seed, 8 rows, the codec at the stack
+    midpoint), counts reset just before and read just after; the CLI's
+    lines are kept."""
+    import io
+    import torch
+    from repro_torch.kernels import circconv
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve
+    B, T = SERVE_ENGINE["num_slots"], SERVE_ENGINE["max_len"]
+    argv = ["--arch", cfg.name, "--device", "cuda", "--batch", str(B),
+            "--steps", str(LOCKSTEP_STEPS), "--cache-len", str(T), "--codec",
+            SERVE_CODEC, "--greedy", "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    circconv.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    m = re.search(r"decoded (\d+) tokens/seq in ([\d.]+)s \(([\d.]+) tok/s", text)
+    wire = re.search(r"cut-layer wire bytes: (\d+)", text)
+    rec = {"argv": argv, "cli_lines": text.splitlines(), "wall_s_with_init": wall,
+           "decode_steps": LOCKSTEP_STEPS, "prefill_chunks": 0,
+           "kv_read": "none (contiguous lockstep)",
+           "launches": {**pa.LAUNCHES, **circconv.LAUNCHES},
+           "route_launches": route_counts(), "record_launches": record_launches(),
+           "shape_launches": {"{}/{}x{}x{}".format(*k): n for k, n in
+                              sorted(circconv.SHAPE_LAUNCHES.items())},
+           "cli_decode_s": float(m[2]) if m else None,
+           "cli_tokens_per_s": float(m[3]) if m else None,
+           "wire_bytes_fwd": int(wire[1]) if wire else None,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    G, D = B // 4, cfg.d_model
+    want = {f"{n}/{G}x4x{D}": LOCKSTEP_STEPS for n in ("bind_superpose", "unbind")}
+    check(m is not None and int(m[1]) == LOCKSTEP_STEPS,
+          f"lockstep {cfg.name}: CLI output {text[-300:]!r}")
+    check(rec["shape_launches"] == want, f"lockstep {cfg.name}: circconv "
+          f"launches {rec['shape_launches']}, want {want}")
+    check_fft_route(rec["route_launches"], LOCKSTEP_STEPS, f"lockstep {cfg.name}")
+    check(rec["wire_bytes_fwd"] == LOCKSTEP_STEPS * G * D * 4,
+          f"lockstep {cfg.name}: wire bytes {rec['wire_bytes_fwd']}")
+    check(rec["launches"]["paged_attention"] == 0
+          and rec["launches"]["paged_attention_quant"] == 0,
+          f"lockstep {cfg.name}: paged launches {rec['launches']}")
+    free_cuda()
+    return rec
+
+
+def lockstep_times(params, cfg, dev, frontend, steps=8) -> dict:
+    """The lockstep loop's decode step at 8 rows (contiguous cache of 512,
+    the codec at the midpoint, position 128 on): the cache with its memory
+    (timed: the encoder runs there), 2 warm-up steps, ``steps`` steps on
+    the host clock, then one step under ``torch.profiler``: device time,
+    idle share, device kernels, top ops; the cache bytes."""
+    import torch
+    from repro_torch import codecs
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import lm as lm_lib
+    B, T = SERVE_ENGINE["num_slots"], SERVE_ENGINE["max_len"]
+    codec = codecs.build(SERVE_CODEC, D=cfg.d_model)
+    cp = codec.init(torch.Generator().manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = lm_lib.init_decode_cache(params, cfg, B, T, frontend_emb=frontend)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+
+    def step(t):
+        lg, _ = lm_lib.decode_step(params, cache, tok, t, cfg, codec=codec,
+                                   codec_params=cp)
+        return lg
+
+    for t in range(2):
+        step(SERVE_PROMPT + t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg = step(SERVE_PROMPT + 2 + t)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(bool(torch.isfinite(lg).all()), f"lockstep {cfg.name}: non-finite logits")
+    _, prof = profiled_call(lambda: step(SERVE_PROMPT + 2 + steps))
+    del cache
+    free_cuda()
+    return {"cache_init_ms": init_ms, "cache_bytes": cache_bytes,
+            "decode_step_ms": step_ms, "tokens_per_s": B / step_ms * 1e3,
+            "profile": {**prof, "idle_share_vs_unprofiled_step":
+                        1 - prof["device_ms"] / step_ms}}
+
+
+def serve_family(dev, label: str, arch: str, layers, small=False,
+                 quant=False) -> dict:
+    """Phases 13 and 14 for one arch at phase 4's settings: full width, its
+    depth cut to ``layers`` (None: its own), or at ``reduced()`` size with
+    ``small``.  Every model: served logits against ``lm_forward`` (within
+    STATE_LOGIT_TOL with a recurrent sublayer, LOGIT_TOL without), its
+    recurrent and cross sublayers' times, its cache bytes against
+    ``analytic_cache_bytes``.  An encoder-decoder model: the engine's
+    refusal, then the lockstep loop through the serve CLI and its times.
+    Any other, through the engine: with an attn sublayer, phase 4's
+    kernel-against-gather checks (paged, and the gather read on the
+    contiguous layout with ``small``), then with ``quant`` bfloat16
+    weights over int8 KV through the int8 kernel; without one,
+    kv_read="kernel" refused and the gather read on both layouts.  Each
+    run held by ``check_family_run`` and by the pages it drew (each
+    request's reservation where an attn or mla cache is paged, else none);
+    paged and contiguous greedy tokens equal; the first engine's decode
+    window timed and profiled."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.interop import tree_leaves
+    from repro_torch.models.stack import RECURRENT_KINDS
     t0 = time.perf_counter()
-    cfg, params = serve_model(torch.float32, dev, arch=arch, layers=layers)
-    res = {"arch": arch, "layers": [cfg.num_layers, get_config(arch).num_layers],
-           "n_attn_layers": n_attn_layers(cfg), "moe_layers": moe_layers(cfg),
+    cfg, params = serve_model(torch.float32, dev, arch=arch, layers=layers,
+                              small=small)
+    kinds = {k for layer in cfg.block_pattern for k in layer}
+    fe = state_frames(cfg, dev)
+    res = {"label": label, "arch": arch, "reduced": small,
+           "layers": [cfg.num_layers, get_config(arch).num_layers],
+           "d_model": cfg.d_model, "n_attn_layers": n_attn_layers(cfg),
+           "moe_layers": moe_layers(cfg),
            "param_bytes": sum(t.numel() * t.element_size()
                               for t in tree_leaves(params))}
-    res["lm_forward"] = lm_forward_parity(params, cfg, dev)
-    runs = {}
-    if not n_attn_layers(cfg):
+    tol = STATE_LOGIT_TOL if kinds & set(RECURRENT_KINDS) else LOGIT_TOL
+    res["lm_forward"] = lm_forward_parity(params, cfg, dev, frontend=fe, tol=tol)
+    res["layer_times"] = layer_times(params, cfg, dev, frontend=fe)
+    runs = res["runs"] = {}
+    if cfg.is_encdec:
+        try:
+            make_engine(params, cfg, "gather")
+        except ValueError as e:
+            res["engine_refused"] = str(e)
+        check("engine_refused" in res, f"{arch}: the engine served an "
+              "encoder-decoder model")
+        res["lockstep_times"] = lockstep_times(params, cfg, dev, fe)
+        want = analytic_cache_bytes(cfg, "contiguous")
+        check(res["lockstep_times"]["cache_bytes"] == want, f"{arch}: cache "
+              f"bytes {res['lockstep_times']['cache_bytes']}, want {want}")
+        del params, fe
+        free_cuda()
+        runs["lockstep"] = lockstep_run(cfg, dev)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    del fe
+    if n_attn_layers(cfg):
+        res["teacher_forced"] = teacher_forced_parity(params, cfg, dev)
+        plan = [("kernel", "paged"), ("gather", "paged")]
+        if small:
+            plan.append(("gather", "contiguous"))
+    else:
         try:
             make_engine(params, cfg, "kernel")
         except ValueError as e:
             res["kernel_read_refused"] = str(e)
         check("kernel_read_refused" in res,
               f"{arch}: kv_read='kernel' without an attn sublayer did not raise")
-        layouts = ("paged", "contiguous")
-        for layout in layouts:
-            eng, runs[layout] = serve_run(params, cfg, "gather", SERVE_REQUESTS,
-                                          SERVE_NEW, kv_layout=layout)
-            res[f"cache_bytes_{layout}"] = eng.cache_bytes
-            if layout == "paged":
-                res["window"] = decode_window_times(eng)
-            del eng
-            free_cuda()
-        check(runs["paged"]["outs"] == runs["contiguous"]["outs"],
-              f"{arch}: greedy tokens differ between paged and contiguous")
-    else:
-        layouts = ("paged",)
-        res["teacher_forced"] = teacher_forced_parity(params, cfg, dev)
-        for kv_read in ("kernel", "gather"):
-            eng, runs[kv_read] = serve_run(params, cfg, kv_read, SERVE_REQUESTS,
-                                           SERVE_NEW)
-            if kv_read == "kernel":
-                res["cache_bytes_paged"] = eng.cache_bytes
-                res["window"] = decode_window_times(eng)
-            del eng
-            free_cuda()
-        res["agreement"] = token_agreement(runs["kernel"]["outs"],
-                                           runs["gather"]["outs"])
-        del params
-        free_cuda()
-        cfg_q, params = serve_model(torch.bfloat16, dev, quant=True, arch=arch,
-                                    layers=layers)
-        eng, runs["quant"] = serve_run(params, cfg_q, "kernel", QUANT_REQUESTS,
-                                       QUANT_NEW)
-        check_family_run(runs["quant"], cfg_q)
+        plan = [("gather", "paged"), ("gather", "contiguous")]
+    run_cfg = {}
+    for kv_read, layout in plan:
+        key = f"{kv_read}_{layout}"
+        eng, runs[key] = serve_run(params, cfg, kv_read, SERVE_REQUESTS,
+                                   SERVE_NEW, kv_layout=layout)
+        run_cfg[key] = cfg
+        res[f"cache_bytes_{layout}"] = eng.cache_bytes
+        if "window" not in res:
+            res["window"] = decode_window_times(eng)
         del eng
-    for layout in layouts:
-        want = analytic_cache_bytes(cfg, layout)
-        check(res[f"cache_bytes_{layout}"] == want, f"{arch} {layout}: cache "
-              f"bytes {res[f'cache_bytes_{layout}']}, want {want}")
-    for key, rec in runs.items():
-        if key != "quant":
-            check_family_run(rec, cfg)
+        free_cuda()
+    for layout in ("paged", "contiguous"):
+        if f"cache_bytes_{layout}" in res:
+            got, want = (res[f"cache_bytes_{layout}"],
+                         analytic_cache_bytes(cfg, layout))
+            check(got == want, f"{arch} {layout}: cache bytes {got}, want {want}")
+    if "kernel_paged" in runs:
+        res["agreement"] = token_agreement(runs["kernel_paged"]["outs"],
+                                           runs["gather_paged"]["outs"])
+    if "gather_contiguous" in runs:
+        check(runs["gather_paged"]["outs"] == runs["gather_contiguous"]["outs"],
+              f"{arch}: greedy tokens differ between paged and contiguous")
     del params
     free_cuda()
-    res["runs"] = runs
+    if quant and n_attn_layers(cfg):
+        cfg_q, params = serve_model(torch.bfloat16, dev, quant=True, arch=arch,
+                                    layers=layers, small=small)
+        eng, runs["quant_paged"] = serve_run(params, cfg_q, "kernel",
+                                             QUANT_REQUESTS, QUANT_NEW)
+        run_cfg["quant_paged"] = cfg_q
+        del eng, params
+        free_cuda()
+    ps = SERVE_ENGINE["page_size"]
+    for key, rec in runs.items():
+        check_family_run(rec, run_cfg[key])
+        want = (rec["requests"] * -(-(SERVE_PROMPT + rec["max_new"]) // ps)
+                if key.endswith("_paged") and kinds & {"attn", "mla"} else 0)
+        check(rec["pages_drawn"] == want, f"{arch} {key}: "
+              f"{rec['pages_drawn']} pages drawn, want {want}")
     res["seconds"] = time.perf_counter() - t0
     return res
 
 
-def print_family_serving(card, res):
-    arch = res["arch"]
-    runs = res["runs"]
-    lf = res["lm_forward"]
-    print(f"serving {arch} full width, {res['layers'][0]} of {res['layers'][1]} "
-          f"layers (cut in depth), float32, {SERVE_CODEC}: params "
-          f"{res['param_bytes'] / 1e9:.2f} GB, {res['n_attn_layers']} attn and "
-          f"{res['moe_layers']} MoE layers; teacher-forced served logits vs "
-          f"lm_forward (capacity = num_experts) gap "
-          f"{max(lf['gap_of_max_logit']):.3g} of max|logit| (limit {LOGIT_TOL}); "
-          f"{lf['routing_flips']} routing decisions flipped, in rows "
-          f"{lf['rows_with_flips']}; gap of the other rows "
+def print_serve_family(card, res):
+    arch, runs, lf = res["arch"], res["runs"], res["lm_forward"]
+    size = ("REDUCED (reduced())" if res["reduced"] else
+            f"full width, {res['layers'][0]} of {res['layers'][1]} layers")
+    pc = lf["prefill_chunk_profile"] or {}
+    print(f"{res['label']}: serving {arch} {size}, float32, {SERVE_CODEC}: "
+          f"params {res['param_bytes'] / 1e9:.2f} GB, {res['n_attn_layers']} attn "
+          f"and {res['moe_layers']} MoE layers; teacher-forced served logits vs "
+          f"lm_forward gap {max(lf['gap_of_max_logit']):.3g} of max|logit| "
+          f"(limit {lf['tol']}); {lf['routing_flips']} routing decisions "
+          f"flipped, in rows {lf['rows_with_flips']}; gap of the other rows "
           f"{lf['gap_rows_without_flips']}", flush=True)
-    if "kernel_read_refused" in res:
-        print(f"  kv_read='kernel' refused: {res['kernel_read_refused'][:80]}")
-        print(f"  greedy tokens paged == contiguous: True; cache bytes "
-              f"{res['cache_bytes_paged']} paged, {res['cache_bytes_contiguous']} "
-              "contiguous (analytic)")
-    else:
-        tf, ag = res["teacher_forced"], res["agreement"]
+    for key, what in (("engine_refused", "engine"),
+                      ("kernel_read_refused", "kv_read='kernel'")):
+        if key in res:
+            print(f"  {what} refused: {res[key][:100]}")
+    if "teacher_forced" in res:
         print(f"  teacher-forced kernel vs gather logit gap "
-              f"{max(tf['gap_of_max_logit']):.3g} of max|logit|; greedy tokens "
-              f"{ag['share_equal']:.4f} equal, first difference at "
-              f"{ag['first_differing_position']}; cache bytes "
-              f"{res['cache_bytes_paged']} paged (analytic)")
+              f"{max(res['teacher_forced']['gap_of_max_logit']):.3g} of "
+              "max|logit|")
+    if "agreement" in res:
+        ag = res["agreement"]
+        print(f"  greedy tokens kernel vs gather {ag['share_equal']:.4f} equal, "
+              f"first difference at {ag['first_differing_position']}")
+    if "gather_contiguous" in runs:
+        print("  greedy tokens paged == contiguous: True")
+    for k in ("cache_bytes_paged", "cache_bytes_contiguous"):
+        if k in res:
+            print(f"  {k} {res[k]} (analytic)")
     for key, r in runs.items():
-        print(f"  serve {key} kv_read={r['kv_read']} ({r['kv_read_execution_mode']}): "
-              f"{r['completed']} requests, {r['generated']} tokens, "
+        moe = (f"MoE calls {r['moe_calls']}, dropped {r['moe_dropped']}; "
+               if "moe_calls" in r else "")
+        print(f"  serve {key}: {r.get('completed', '8 lockstep')} requests, "
               f"{r['decode_steps']} decode steps, {r['prefill_chunks']} prefill "
               f"chunks; circconv {r['shape_launches']}; paged "
               f"{ {k: r['launches'][k] for k in ('paged_attention', 'paged_attention_quant')} }; "
-              f"MoE calls {r['moe_calls']}, dropped {r['moe_dropped']}; wire "
+              f"{moe}pages drawn {r.get('pages_drawn', 0)}; wire "
               f"{r['wire_bytes_fwd']:,d} B (exact)", flush=True)
     for key, r in runs.items():
+        if key == "lockstep":
+            print(f"time [{card}] serve {arch} lockstep CLI 8 rows x "
+                  f"{r['decode_steps']} steps: {r['cli_decode_s']:.3f} s "
+                  f"({r['cli_tokens_per_s']:.1f} tok/s), peak "
+                  f"{r['peak_gb']:.1f} GB", flush=True)
+            continue
         print(f"time [{card}] serve {arch} {key} {r['requests']}x({SERVE_PROMPT}+"
               f"{r['max_new']}): {r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} "
               f"generated tok/s, mean TTFT {r['mean_ttft_ms']:.1f} ms, peak "
               f"{r['peak_gb']:.1f} GB", flush=True)
-    w = res["window"]
-    print(f"time [{card}] serve {arch} decode step (8 live slots, float32): "
-          f"{w['decode_step_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} tok/s); "
-          f"prefill chunk (8 x 64, no codec) "
-          f"{', '.join(f'{t:.1f}' for t in lf['prefill_chunk_ms'])} ms", flush=True)
-    if w["profile"] is None:
-        print(f"profile [{card}] {arch} decode window: the profiler saw no device "
-              "time (not measured)")
-    else:
-        wp = w["profile"]
-        print(f"profile [{card}] {arch} decode window: device "
-              f"{wp['device_ms_per_step']:.3f} ms/step, idle "
-              f"{wp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled step "
-              f"({wp['idle_share_profiled']:.3f} profiled); paged kernel "
-              f"{wp['paged_kernel_ms_per_step']:.4f} ms/step; circconv "
-              f"{wp['circconv_ms_per_step']:.4f} ms/step "
-              f"({wp['circconv_ms_per_step'] / wp['device_ms_per_step']:.5f} of "
-              f"device time); {wp['device_ops_per_step']:.0f} device ops/step",
+    print(f"time [{card}] serve {arch} prefill chunk (8 x 64, no codec) "
+          f"{', '.join(f'{t:.1f}' for t in lf['prefill_chunk_ms'])} ms; "
+          f"profiled chunk: device {pc.get('device_ms', math.nan):.3f} ms, "
+          f"{pc.get('device_launches', 0)} device kernels, wall "
+          f"{pc.get('wall_ms_profiled', math.nan):.1f} ms (profiled)", flush=True)
+    if "lockstep_times" in res:
+        lt = res["lockstep_times"]
+        print(f"time [{card}] serve {arch} lockstep decode step (8 rows, "
+              f"float32): {lt['decode_step_ms']:.3f} ms "
+              f"({lt['tokens_per_s']:.1f} tok/s); cache with memory "
+              f"{lt['cache_init_ms']:.1f} ms, {lt['cache_bytes']} B (analytic); "
+              f"profiled step device {lt['profile']['device_ms']:.3f} ms, idle "
+              f"{lt['profile']['idle_share_vs_unprofiled_step']:.3f}, "
+              f"{lt['profile']['device_launches']} device kernels", flush=True)
+    if "window" in res:
+        w = res["window"]
+        print(f"time [{card}] serve {arch} decode step (8 live slots, float32): "
+              f"{w['decode_step_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} "
+              f"tok/s)", flush=True)
+        if w["profile"] is None:
+            print(f"profile [{card}] {arch} decode window: the profiler saw no "
+                  "device time (not measured)")
+        else:
+            wp = w["profile"]
+            print(f"profile [{card}] {arch} decode window: device "
+                  f"{wp['device_ms_per_step']:.3f} ms/step, idle "
+                  f"{wp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled "
+                  f"step ({wp['idle_share_profiled']:.3f} profiled); paged "
+                  f"kernel {wp['paged_kernel_ms_per_step']:.4f} ms/step; "
+                  f"circconv {wp['circconv_ms_per_step']:.4f} ms/step "
+                  f"({wp['circconv_ms_per_step'] / wp['device_ms_per_step']:.5f} "
+                  f"of device time); {wp['device_ops_per_step']:.0f} device "
+                  "ops/step", flush=True)
+            for r in wp["top"][:8]:
+                print(f"  {r['ms_per_step']:.4f} ms/step  {r['name']}")
+    for kind, t in res["layer_times"].items():
+        if kind == "encoder_at_cache_init":
+            print(f"time [{card}] {arch} encoder over {t['frames']} frames at "
+                  f"cache init: {t['ms_host_included']:.3f} ms host included",
+                  flush=True)
+            continue
+        print(f"time [{card}] {arch} {kind} one sublayer at 8 slots: decode "
+              f"{t['decode_ms']:.4f} ms ({t['decode_ms_host_included']:.4f} host "
+              f"included); prefill chunk of 64 "
+              f"{t['prefill_chunk_ms_host_included']:.3f} ms host included",
               flush=True)
-        for r in wp["top"][:8]:
-            print(f"  {r['ms_per_step']:.4f} ms/step  {r['name']}")
     print(f"serving {arch}: phase seconds {res['seconds']:.1f}", flush=True)
 
 
@@ -2067,11 +2447,13 @@ def fft4_times(dev) -> dict:
 # phase 6's paged shapes: the serving run's decode read (8 slots, positions
 # spread over 128-160) and one live slot with the whole cache admitted, at
 # deepseek-7b's geometry (KV = H = 32), and the serving read at
-# phi3.5-moe-42b-a6.6b's (32 heads over KV 8)
+# phi3.5-moe-42b-a6.6b's and pixtral-12b's (32 heads over KV 8) and at
+# reduced jamba's (4 heads over KV 2 of 64)
 _SERVING_POS = np.linspace(128, 160, 8).round().astype(np.int32)
 PAGED_TIME_SHAPES = {"serving": (MAIN_PAGED, _SERVING_POS),
                      "one_slot": (MAIN_PAGED, np.array([511], np.int32)),
-                     "serving_kv8": (KV8_PAGED, _SERVING_POS)}
+                     "serving_kv8": (KV8_PAGED, _SERVING_POS),
+                     "serving_jamba": (JAMBA_PAGED, _SERVING_POS)}
 
 
 def paged_bound(rows, B, H, KV, hd, *, kv_bytes, q_bytes, quant) -> dict:
@@ -2802,9 +3184,19 @@ def main() -> int:
     serve_families = {}
     for arch, layers in FAMILY_SERVE:
         free_cuda()
-        serve_families[arch] = family_serving(dev, arch, layers)
+        serve_families[arch] = serve_family(dev, "phase 13", arch, layers,
+                                            quant=True)
         lap(f"serving_{arch}")
-        print_family_serving(card, serve_families[arch])
+        print_serve_family(card, serve_families[arch])
+
+    print("phase 14: serving the stateful and memory families", flush=True)
+    serve_states = {}
+    for run, arch, layers, small in STATE_SERVE:
+        free_cuda()
+        serve_states[arch] = serve_family(dev, f"phase 14{run}", arch, layers,
+                                          small=small)
+        lap(f"serving_{arch}")
+        print_serve_family(card, serve_states[arch])
 
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
@@ -2836,7 +3228,8 @@ def main() -> int:
     cp_keys = (["16x4x2048/float32"]
                + [f"{G}x{R}x{D}/float32" for G, R, D in cp_kernel_shapes() if D == 2048]
                + ["{}x{}x{}/float32".format(*sh) for sh in
-                  FAMILY_SERVE_SHAPES + [(2, 4, 4096), (128, 4, 4096)]])
+                  FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES
+                  + [(2, 4, 4096), (128, 4, 4096)]])
     main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
                                        + [errs["bind_superpose"]["grad 16x4x2048"]]),
                  "unbind": max([errs["unbind"][k] for k in cp_keys]
@@ -2852,33 +3245,40 @@ def main() -> int:
                  "unbind_fft4": max(errs["unbind_fft4"][k] for k in lm_keys),
                  # the serving shape, in the dtype each serving run calls
                  "paged_attention": max(errs["paged_attention"][f"{g}/float32"]
-                                        for g in ("main", "kv8")),
+                                        for g in ("main", "kv8", "jamba")),
                  "paged_attention_quant": max(
                      errs["paged_attention_quant"][f"{g}/bfloat16"]
                      for g in ("main", "kv8"))}
     # the circconv kernels' launches in each main-path run, counted by the
     # run and read just after it (record_launches): the one-pass kernels'
-    # in the VGG-16 main run and the control plane's, the direct ones' in
-    # the main run, the four-step ones' in the six LM training runs
-    # (phases 7-12), the mixed-radix one-pass ones' over every
-    # run; every width these runs take is a power of two or past shared
-    # memory, so that sum must be 0
+    # in the VGG-16 main run, the control plane's and the serving runs of
+    # phases 13 and 14, the direct ones' in the main run, the four-step
+    # ones' in the six LM training runs (phases 7-12), the mixed-radix
+    # one-pass ones' over every run; of these only phase 14's pixtral-12b
+    # (D 5120) takes a mixed-radix width, so that sum must be its decode
+    # steps and prefill chunks
     def counted(name, runs):
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values()]
     family_runs = [r for f in serve_families.values() for r in f["runs"].values()]
-    path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *family_runs]
-    one_pass_runs = [main_run, cp, *family_runs]
+    state_runs = [r for f in serve_states.values() for r in f["runs"].values()]
+    serve_runs = family_runs + state_runs
+    path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *serve_runs]
+    one_pass_runs = [main_run, cp, *serve_runs]
     launches = {name: counted(name, runs) for name, runs in (
         ("bind_superpose", one_pass_runs), ("unbind", one_pass_runs),
         ("bind_superpose_direct", [main_run]), ("unbind_direct", [main_run]),
         ("bind_superpose_mixed", path_runs), ("unbind_mixed", path_runs),
         ("bind_superpose_fft4", lm_runs), ("unbind_fft4", lm_runs))}
-    check(launches["bind_superpose_mixed"] == launches["unbind_mixed"] == 0,
-          f"mixed-radix one-pass launches on the main path: {launches}")
+    mixed = sum(r["decode_steps"] + r["prefill_chunks"]
+                for r in serve_states["pixtral-12b"]["runs"].values())
+    check(mixed > 0 and launches["bind_superpose_mixed"]
+          == launches["unbind_mixed"] == mixed,
+          f"mixed-radix one-pass launches on the main path: {launches}, want "
+          f"{mixed} (pixtral-12b's)")
     launches.update({name: sum(r["launches"][name] for r in (rk, rg, rq,
-                                                             *family_runs))
+                                                             *serve_runs))
                      for name in ("paged_attention", "paged_attention_quant")})
     vgg = times["16x4x2048"]
 
@@ -2891,7 +3291,7 @@ def main() -> int:
                     **{shape: {k: ptimes[wrapper][shape][k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms", "splits",
                         "share_of_bound", "ms_host_included")}
-                       for shape in ("one_slot", "serving_kv8")}}
+                       for shape in ("one_slot", "serving_kv8", "serving_jamba")}}
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                 "direct_one_call_ms", "key_spectra_ms", "sides")
         if kernel_route == "fft4":
@@ -2943,7 +3343,7 @@ def main() -> int:
                           "bnpp_resnet50": cp_bn},
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
         "lm_training_qwen": qwen, "lm_training_families": families,
-        "serving_families": serve_families,
+        "serving_families": serve_families, "serving_states": serve_states,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

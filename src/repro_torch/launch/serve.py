@@ -18,6 +18,11 @@ unless ``--device cpu`` is given; weights are random, drawn from
         --reduced --engine --device cpu --codec "adaptive:c3sl:R=4,min_R=1" \
         --pin-R 2
 
+    # an encoder-decoder model, through the lockstep loop (the engine
+    # refuses one, as the reference's fails on one)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --reduced --device cpu --codec "c3sl:R=4"
+
 Not ported yet: the front door, the speculative-decoding flags and
 ``--sanitize`` (ROADMAP.md slices 5, 6 and 7).
 """
@@ -129,8 +134,16 @@ def _run_lockstep(cfg, params, args):
         if isinstance(codec, transport.SplitLink):
             codec, codec_params = codec.serving_codec(codec_params)
     _pin(codec, args.pin_R)
-    cache = lm_lib.init_decode_cache(params, cfg, args.batch, args.cache_len)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    fe = None
+    if cfg.frontend:
+        # random frames for the modality frontend (an encoder-decoder
+        # model's encoder reads them; a VLM is served text-only and ignores
+        # them, as in the reference)
+        fe = torch.randn((args.batch, cfg.frontend_seq, cfg.frontend_dim),
+                         generator=gen, device=args.device)
+    cache = lm_lib.init_decode_cache(params, cfg, args.batch, args.cache_len,
+                                     frontend_emb=fe)
 
     def make_step(step_codec, step_codec_params):
         # one step per (bucket) codec; the adaptive wrapper itself never

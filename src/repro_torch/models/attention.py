@@ -109,11 +109,11 @@ def _sdpa(q, k, v, mask):
     hd_v = v.shape[-1]
     groups = H // KV
     qg = q.reshape(B, Sq, KV, groups, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", *promote(qg, k))
     scores = scores.to(_acc_dtype(scores.dtype)) * (hd ** -0.5)
     scores = scores.masked_fill(~_expand_mask(mask), NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    out = torch.einsum("bkgqs,bskh->bqkgh", *promote(probs, v))
     return out.reshape(B, Sq, H * hd_v)
 
 
@@ -339,7 +339,7 @@ def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
         y = _sdpa_quant(q, view["k"], view["k_scale"], view["v"],
                         view["v_scale"], mask, x.dtype) @ p["w_o"]
     else:
-        y = _sdpa(q, view["k"], view["v"], mask) @ p["w_o"]
+        y = matmul(_sdpa(q, view["k"], view["v"], mask), p["w_o"])
     return y, cache
 
 
@@ -384,8 +384,8 @@ def apply_gqa_prefill(p, x, cache, pos, valid, *, num_heads, num_kv_heads,
         cv = (cview["v"].float() * cview["v_scale"]).to(x.dtype)
     else:
         ck, cv = cview["k"], cview["v"]
-    y = _sdpa(q, torch.cat([ck, k], dim=1), torch.cat([cv, v], dim=1),
-              mask) @ p["w_o"]
+    y = matmul(_sdpa(q, torch.cat([ck, k], dim=1), torch.cat([cv, v], dim=1),
+                     mask), p["w_o"])
 
     slot = qpos % T if sliding_window is not None else qpos
     if quant:

@@ -28,13 +28,17 @@ frontend frames through an ``ENC_PATTERN`` encoder whose output every
 ``cross`` sublayer reads).  Modality frontends are stubs, as in the
 reference: batches carry precomputed embeddings under "frontend".
 
-Serving (``check_servable``) covers decoder-only models of ``attn``,
-``mlp``, ``mla`` and ``moe`` sublayers, with or without the
-``first_dense_layers`` superblock, which runs ahead of the stack (and of
-the codec's cut) on its own unstacked cache and always on the gather read.
-The stateful and memory kinds, encoder-decoder models and frontends come
-with ROADMAP.md slice 4, part 3, and speculative ``verify_chunk`` with
-slice 5 (serving II).
+Serving (the decode cache, ``decode_step``, ``prefill_chunk``) takes every
+registered arch, as the reference serves it: every sublayer kind (the
+recurrent kinds on an O(1) per-slot state, ``cross`` over the encoder's
+memory), the ``first_dense_layers`` superblock (ahead of the stack and of
+the codec's cut, on its own unstacked cache, always on the gather read),
+an encoder-decoder model (its encoder runs once, in ``init_decode_cache``,
+over the ``frontend_emb`` frames, into ``cache["memory"]``, which every
+stack call reads) and a VLM, which is served text-only: the reference's
+serving embeds tokens only, text positions from 0, and never reads the
+patch embeddings.  Speculative ``verify_chunk`` comes with slice 5
+(serving II).
 """
 from __future__ import annotations
 
@@ -57,14 +61,8 @@ ENC_PATTERN = (("attn", "mlp"),)
 
 
 def check_servable(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for model features the serving entry
-    points do not cover yet (they come with the next slice)."""
-    for what, on in (("encoder-decoder models", cfg.is_encdec),
-                     ("modality frontends", bool(cfg.frontend))):
-        if on:
-            raise NotImplementedError(
-                f"{cfg.name}: serving {what} is not ported yet: it comes "
-                f"with {stack_lib.SERVING_SLICE}")
+    """Raise ``ValueError`` for a sublayer kind the serving entry points do
+    not know (every registered kind is served)."""
     for layer in cfg.block_pattern:
         for kind in layer:
             stack_lib.check_servable_kind(kind)
@@ -226,15 +224,24 @@ def lm_loss(params, batch, cfg: ModelConfig, *, codec=None, codec_params=None,
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
-                      dtype=torch.float32, paged=None, device=None):
+                      dtype=torch.float32, frontend_emb=None, paged=None,
+                      device=None):
     """Decode cache tree.  With ``paged`` (a PagedLayout) the attn and mla
     leaves are shared page pools and the cache carries the per-slot page
     tables under "pages" (full-length caches) and "pages_swa"
     (sliding-window rings): int32 (B, P) tensors of physical page ids.  The
     first-dense superblock's cache is "first", with no superblock axis; its
-    pools share the "pages" table.  ``device`` defaults to the params'
-    device."""
+    pools share the "pages" table.  An encoder-decoder model's cache holds
+    "memory", the encoder's output (B, frontend_seq, d) over
+    ``frontend_emb`` (B, frontend_seq, frontend_dim), which it needs; any
+    other model ignores ``frontend_emb``.  ``device`` defaults to the
+    params' device."""
     check_servable(cfg)
+    if cfg.is_encdec and frontend_emb is None:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: init_decode_cache needs "
+            f"frontend_emb ({batch}, {cfg.frontend_seq}, {cfg.frontend_dim}), "
+            "the frames its encoder reads into the cache's memory")
     if device is None:
         device = params["embed"].device
     cache: dict[str, Any] = {
@@ -243,6 +250,8 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
     if cfg.first_dense_layers:
         cache["first"] = stack_lib.init_superblock_cache(
             cfg, batch, length, dtype, paged=paged, device=device)
+    if cfg.is_encdec:
+        cache["memory"] = _run_encoder(params, cfg, frontend_emb, remat=False)
     if paged is not None:
         cache["pages"] = torch.zeros((batch, paged.pages_per_slot),
                                      dtype=torch.int32, device=device)
@@ -271,7 +280,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     """
     check_servable(cfg)
     h = params["embed"][tokens.long()]
-    kw = dict(paged=paged, pages=cache.get("pages"),
+    kw = dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
               pages_swa=cache.get("pages_swa"), live=live)
     if cfg.first_dense_layers:
         h, _ = stack_lib.apply_superblock_decode(params["first"], cache["first"],
@@ -322,7 +331,7 @@ def chunk_forward(params, cache, tokens, pos, cfg: ModelConfig, *,
     if valid is None:
         valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
     h = params["embed"][tokens.long()]
-    kw = dict(paged=paged, pages=cache.get("pages"),
+    kw = dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
               pages_swa=cache.get("pages_swa"))
     if cfg.first_dense_layers:
         h, _ = stack_lib.apply_superblock_prefill(params["first"], cache["first"],

@@ -1,6 +1,7 @@
-"""Mamba (S6) selective state-space block, training forward.
+"""Mamba (S6) selective state-space block: the training forward and the
+O(1) decode step.
 
-Port of the training path of ``repro/models/mamba.py``: the same params,
+Port of ``repro/models/mamba.py``: the same params,
 projections, causal depthwise conv and chunked scan.  The reference scans
 each chunk with ``jax.lax.associative_scan`` over the recurrence
 ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``; PyTorch has no stable
@@ -13,8 +14,11 @@ and is recomputed in the backward (``torch.utils.checkpoint``), so the
 float32 (B, chunk, d_inner, d_state) tensors never exist for the whole
 sequence, and its outputs are stored at model precision.
 
-The O(1) decode state (``init_mamba_state``, ``apply_mamba_decode``) comes
-with ROADMAP.md slice 4, part 3.
+Decode keeps the reference's recurrent state, ``h`` (B, d_inner, d_state)
+in float32 and ``conv`` (B, d_conv - 1, d_inner), the last inputs of the
+causal conv, and advances it one token a call in the reference's order.
+Mixed products promote as JAX does (``layers.matmul``): a float32 state
+under bfloat16 weights computes in float32.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models.layers import _normal, dense_init, matmul, promote
 
 
 def init_mamba(rng: torch.Generator, d_model: int, d_inner: int, *,
@@ -47,11 +51,11 @@ def init_mamba(rng: torch.Generator, d_model: int, d_inner: int, *,
 def _ssm_inputs(p, x_conv, *, d_state: int):
     """x_conv (B, S, di) -> dt, Bmat, Cmat, A."""
     dt_rank = p["w_dt"].shape[0]
-    proj = x_conv @ p["w_x"]
+    proj = matmul(x_conv, p["w_x"])
     dt_low = proj[..., :dt_rank]
     Bmat = proj[..., dt_rank:dt_rank + d_state]
     Cmat = proj[..., dt_rank + d_state:]
-    dt = F.softplus(dt_low @ p["w_dt"] + p["dt_bias"])
+    dt = F.softplus(matmul(dt_low, p["w_dt"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())                         # (di, ds)
     return dt, Bmat, Cmat, A
 
@@ -118,4 +122,38 @@ def apply_mamba(p, x: torch.Tensor, *, d_state: int = 16,
     y = torch.cat(ys, dim=1).to(x.dtype)
     y = y + p["D"] * x_conv
     return (y * F.silu(z)) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# decode (O(1) state)
+# ---------------------------------------------------------------------------
+
+def init_mamba_state(batch: int, d_inner: int, *, d_state: int = 16,
+                     d_conv: int = 4, dtype=torch.float32, lead: tuple = (),
+                     device="cuda"):
+    """``lead`` prepends the stacked superblock axis."""
+    return {"h": torch.zeros((*lead, batch, d_inner, d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((*lead, batch, d_conv - 1, d_inner),
+                                dtype=dtype, device=device)}
+
+
+def apply_mamba_decode(p, x, state, *, d_state: int = 16):
+    """One-token step.  x (B, 1, d_model) -> (y (B, 1, d_model), new state);
+    ``state`` is read, not written: the caller commits the new one."""
+    di = p["w_in"].shape[-1] // 2
+    xz = matmul(x[:, 0], p["w_in"])
+    x_in, z = xz[..., :di], xz[..., di:]
+    window = torch.cat(promote(state["conv"], x_in[:, None, :]), dim=1)  # (B,K,di)
+    x_conv = F.silu(torch.einsum("bkd,kd->bd", *promote(window, p["conv_w"]))
+                    + p["conv_b"])
+    dt, Bmat, Cmat, A = _ssm_inputs(p, x_conv[:, None, :], d_state=d_state)
+    dt, Bmat, Cmat = dt[:, 0], Bmat[:, 0], Cmat[:, 0]
+    dA = torch.exp(dt[..., None].float() * A)                          # (B,di,ds)
+    dBx = (dt * x_conv)[..., None].float() * Bmat[:, None, :].float()
+    h = dA * state["h"] + dBx
+    y = torch.einsum("bds,bs->bd", h, Cmat.float()).to(x.dtype)
+    y = y + p["D"] * x_conv
+    out = matmul(y * F.silu(z), p["w_out"])
+    return out[:, None, :], {"h": h, "conv": window[:, 1:]}
 

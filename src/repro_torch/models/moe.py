@@ -62,6 +62,12 @@ class _MoveRows(torch.autograd.Function):
         return _MoveRows.apply(g, back, take), None, None
 
 
+def _one_hot(idx, E: int):
+    """``F.one_hot(idx, E)`` without its range checks, which read ``idx`` on
+    the host on a CPU tensor."""
+    return (idx[..., None] == torch.arange(E, device=idx.device)).long()
+
+
 def route(p, xf, *, top_k: int, capacity_factor: float):
     """The router and the capacity dispatch for xf (N, d): probs (N, E)
     float32, gates (N, k) renormalised, expert_idx (N, k), keep (N*k,)
@@ -78,7 +84,7 @@ def route(p, xf, *, top_k: int, capacity_factor: float):
     e_flat = expert_idx.reshape(-1)
     # each copy's running count in its expert, scanned along the copies as
     # the inner axis of (E, N*k) (an outer-axis scan is far slower on CUDA)
-    count = torch.cumsum(F.one_hot(e_flat, E).T.contiguous(), dim=1)
+    count = torch.cumsum(_one_hot(e_flat, E).T.contiguous(), dim=1)
     pos_in_e = torch.gather(count, 0, e_flat[None, :])[0] - 1
     keep = pos_in_e < cap
     dest = torch.where(keep, e_flat * cap + pos_in_e, E * cap)
@@ -114,7 +120,7 @@ def apply_moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
         y = y + apply_mlp(p["shared"], xf)
 
     # Switch-style load-balance auxiliary loss
-    frac_tokens = F.one_hot(r["expert_idx"][:, 0], E).float().mean(dim=0)
+    frac_tokens = _one_hot(r["expert_idx"][:, 0], E).float().mean(dim=0)
     frac_probs = r["probs"].mean(dim=0)
     aux = E * torch.sum(frac_tokens * frac_probs)
     if ROUTING_LOG is not None:

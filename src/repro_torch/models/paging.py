@@ -94,11 +94,13 @@ def masked_write(rows: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     entry's target (or, when nothing is kept, the value already at its own
     target), so duplicate indices always carry equal values."""
     any_keep = keep.any()
-    first = torch.argmax(keep.to(torch.int32))
+    # a (1,) index, never a 0-dim one: indexing with a 0-dim device tensor
+    # reads it on the host (aten._local_scalar_dense)
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
     lead = (-1,) + (1,) * (vals.ndim - 1)
     use_first = (~keep & any_keep).reshape(lead)
-    tgt = torch.where(keep | ~any_keep, idx, idx[first])
-    src = torch.where(use_first, vals[first].unsqueeze(0),
+    tgt = torch.where(keep | ~any_keep, idx, idx.index_select(0, first))
+    src = torch.where(use_first, vals.index_select(0, first),
                       torch.where(keep.reshape(lead), vals, rows[idx]))
     rows[tgt] = src.to(rows.dtype)
 

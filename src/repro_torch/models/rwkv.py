@@ -1,7 +1,7 @@
-"""RWKV-6 ("Finch") block, training forward: time-mix with data-dependent
-decay, and channel-mix.
+"""RWKV-6 ("Finch") block: time-mix with data-dependent decay, and
+channel-mix; the training forward and the O(1) decode step.
 
-Port of the training path of ``repro/models/rwkv.py``.  Recurrence per
+Port of ``repro/models/rwkv.py``.  Recurrence per
 head (k-dim x v-dim outer-product state S):
     y_t = r_t . (S_{t-1} + (u * k_t) (x) v_t)
     S_t = diag(w_t) S_{t-1} + k_t (x) v_t
@@ -15,7 +15,11 @@ every exponent of the intra-chunk factors within half a chunk's decay and
 so keeps float32 safe.  The reference's sharding constraint on the scanned
 state has no counterpart on one card.
 
-The O(1) decode state comes with ROADMAP.md slice 4, part 3.
+Decode keeps the reference's state: the float32 wkv matrix (B, H, hd, hd)
+and the token-shift inputs ``x_prev_tm`` / ``x_prev_cm`` (B, D), and
+advances it one token a call through the same ``_wkv_step``.  Mixed
+products promote as JAX does (``layers.matmul``): a float32 token-shift
+state under bfloat16 weights computes in float32.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models.layers import _normal, dense_init, matmul
 
 
 def init_rwkv_timemix(rng: torch.Generator, d_model: int, num_heads: int, *,
@@ -202,3 +206,55 @@ def apply_rwkv_channelmix(p, x: torch.Tensor) -> torch.Tensor:
     xr = x + p["mix_r"] * (xp - x)
     k = torch.square(F.relu(xk @ p["w_k"]))
     return torch.sigmoid(xr @ p["w_r"]) * (k @ p["w_v"])
+
+
+# ---------------------------------------------------------------------------
+# decode (O(1) state)
+# ---------------------------------------------------------------------------
+
+def init_rwkv_state(batch: int, d_model: int, num_heads: int,
+                    dtype=torch.float32, *, device="cuda"):
+    hd = d_model // num_heads
+    return {
+        "wkv": torch.zeros((batch, num_heads, hd, hd), dtype=torch.float32,
+                           device=device),
+        "x_prev_tm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "x_prev_cm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+    }
+
+
+def apply_rwkv_timemix_decode(p, x, state, *, num_heads: int):
+    """x (B,1,D) one token; ``state`` carries the token shift and wkv.
+    Returns (y (B,1,D), new state); ``state`` is read, not written."""
+    B, _, D = x.shape
+    hd = D // num_heads
+    xt = x[:, 0]
+    xp = state["x_prev_tm"]
+
+    def mix(m):
+        return xt + p[m] * (xp - xt)
+
+    r = matmul(mix("mix_r"), p["w_r"]).reshape(B, num_heads, hd).float()
+    k = matmul(mix("mix_k"), p["w_k"]).reshape(B, num_heads, hd).float()
+    v = matmul(mix("mix_v"), p["w_v"]).reshape(B, num_heads, hd).float()
+    g = F.silu(matmul(mix("mix_g"), p["w_g"]))
+    dec = p["w0"] + matmul(torch.tanh(matmul(mix("mix_w"), p["w_dec_a"])),
+                           p["w_dec_b"])
+    w = torch.exp(-torch.exp(dec.float())).reshape(B, num_heads, hd)
+    S_new, y = _wkv_step(state["wkv"], (r, k, v, w), p["u"].float())
+    # the per-head norm: jnp.var is the biased variance
+    mu = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, unbiased=False)
+    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(B, D).to(x.dtype) * p["ln_scale"]
+    out = matmul(y * g, p["w_o"])
+    return out[:, None, :], dict(state, wkv=S_new, x_prev_tm=xt)
+
+
+def apply_rwkv_channelmix_decode(p, x, state):
+    xt = x[:, 0]
+    xp = state["x_prev_cm"]
+    xk = xt + p["mix_k"] * (xp - xt)
+    xr = xt + p["mix_r"] * (xp - xt)
+    k = torch.square(F.relu(matmul(xk, p["w_k"])))
+    out = torch.sigmoid(matmul(xr, p["w_r"])) * matmul(k, p["w_v"])
+    return out[:, None, :], dict(state, x_prev_cm=xt)

@@ -14,13 +14,24 @@ reference's ``jax.checkpoint`` of the scan body) recomputes each
 superblock in the backward through ``torch.utils.checkpoint``: it changes
 memory, not numbers.
 
-Every sublayer kind trains (``TRAIN_KINDS``: attn, mla, mlp, moe, mamba,
-rwkv_tm, rwkv_cm, cross).  Serving (the decode cache, decode and chunked
-prefill) covers ``SERVE_KINDS``: attn, mlp, mla (over its latent cache)
-and moe (at ``capacity_factor = num_experts``, so serving never drops a
-token copy).  The stateful and memory kinds' decode and prefill (mamba,
-rwkv_tm, rwkv_cm, cross) come with ROADMAP.md slice 4, part 3, and raise
-``NotImplementedError`` here.
+Every sublayer kind trains and serves (``TRAIN_KINDS`` = ``SERVE_KINDS``:
+attn, mla, mlp, moe, mamba, rwkv_tm, rwkv_cm, cross).  Serving keeps a
+decode cache per sublayer: attn and mla cache positions (paged or
+contiguous), mamba and rwkv keep an O(1) per-slot state that is the same on
+both layouts, and mlp, moe and cross keep nothing (cross re-reads the
+encoder's memory at every call, as the reference does).  moe serves at
+``capacity_factor = num_experts``, so serving never drops a token copy.
+A recurrent kind's chunked prefill runs the one-token decode step position
+by position, committing state only where ``valid``, as the reference's
+``_prefill_stateful`` does.
+
+Caches are written in place: ``apply_stack_decode`` and
+``apply_stack_prefill`` hand each superblock views of the stacked leaves,
+so a recurrent kind copies its new state into its leaves (only on the rows
+``live`` or ``valid`` marks) and never returns a fresh tensor in their
+place.  As the reference's ``lax.scan`` over superblocks does, the serving
+stack refuses a superblock that changes the residual stream's dtype
+(``TypeError``): a bfloat16 model over a float32 cache or state promotes it.
 """
 from __future__ import annotations
 
@@ -36,17 +47,14 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
 
-TRAIN_KINDS = SUBLAYER_KINDS
-SERVE_KINDS = ("attn", "mlp", "mla", "moe")
-SERVING_SLICE = "ROADMAP.md slice 4, part 3"
+TRAIN_KINDS = SERVE_KINDS = SUBLAYER_KINDS
+RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
 
 def check_servable_kind(kind: str):
     if kind not in SERVE_KINDS:
-        raise NotImplementedError(
-            f"decode and prefill of sublayer kind {kind!r} are not ported "
-            f"yet: they come with {SERVING_SLICE}; the port serves "
-            f"{SERVE_KINDS} (and trains {TRAIN_KINDS})")
+        raise ValueError(f"unknown sublayer kind {kind!r}: the port serves "
+                         f"{SERVE_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +138,21 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int, length: int,
     """One sublayer's decode cache.  With ``paged`` (a PagedLayout) the
     attn and mla leaves are shared page POOLS (num_pages, page_size, ...)
     instead of per-slot (B, T, ...) strips; an mla pool is always the
-    full-length one (no ring) and never quantized."""
+    full-length one (no ring) and never quantized.  The recurrent kinds'
+    per-slot state is the same on both layouts."""
     check_servable_kind(kind)
+    if kind == "mamba":
+        return mamba_lib.init_mamba_state(batch, cfg.d_inner, d_state=cfg.d_state,
+                                          d_conv=cfg.d_conv, dtype=dtype,
+                                          lead=lead, device=device)
+    if kind in ("rwkv_tm", "rwkv_cm"):
+        st = {"x_prev": torch.zeros((*lead, batch, cfg.d_model), dtype=dtype,
+                                    device=device)}
+        if kind == "rwkv_tm":
+            hd = cfg.d_model // cfg.num_heads
+            st["wkv"] = torch.zeros((*lead, batch, cfg.num_heads, hd, hd),
+                                    dtype=torch.float32, device=device)
+        return st
     if kind == "mla":
         rows = (paged.num_pages, paged.page_size) if paged is not None \
             else (batch, length)
@@ -139,7 +160,7 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int, length: int,
                                        cfg.qk_rope_dim, dtype, lead=lead,
                                        device=device)
     if kind != "attn":
-        return {}                      # mlp and moe are stateless
+        return {}                      # mlp, moe and cross keep nothing
     kw = dict(dtype=dtype, quant=cfg.kv_cache_quant, lead=lead, device=device)
     if paged is not None:
         np_ = paged.num_pages_swa if cfg.sliding_window else paged.num_pages
@@ -292,13 +313,60 @@ def _serve_ffn(kind: str, p, cfg: ModelConfig, x):
     return apply_mlp(p, x)
 
 
+def _cross(p, cfg: ModelConfig, x, memory):
+    """``cross`` over the encoder's memory: its K and V are recomputed at
+    every call, as in the reference (there is no cross-attention cache)."""
+    return attn_lib.apply_cross_attention(p, x, memory, num_heads=cfg.num_heads,
+                                          num_kv_heads=cfg.num_kv_heads,
+                                          head_dim=cfg.head_dim_)
+
+
+def _recurrent_step(kind: str, p, state, cfg: ModelConfig, x):
+    """One token through a recurrent sublayer: x (B,1,d), ``state`` keyed as
+    the sublayer's cache.  Returns (y (B,1,d), the new state keyed the
+    same); ``state`` is only read."""
+    if kind == "mamba":
+        return mamba_lib.apply_mamba_decode(p, x, state, d_state=cfg.d_state)
+    if kind == "rwkv_tm":
+        y, st = rwkv_lib.apply_rwkv_timemix_decode(
+            p, x, {"wkv": state["wkv"], "x_prev_tm": state["x_prev"]},
+            num_heads=cfg.num_heads)
+        return y, {"wkv": st["wkv"], "x_prev": st["x_prev_tm"]}
+    y, st = rwkv_lib.apply_rwkv_channelmix_decode(p, x,
+                                                  {"x_prev_cm": state["x_prev"]})
+    return y, {"x_prev": st["x_prev_cm"]}
+
+
+def _where_rows(mask, new, old):
+    """``new`` on the rows (B,) ``mask`` marks, ``old`` elsewhere."""
+    return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def _commit(cache, state):
+    """Copy ``state`` into the cache's leaves, in place: the caller's
+    stacked leaves see it (a fresh tensor in the returned dict would be
+    lost)."""
+    for name, leaf in cache.items():
+        leaf.copy_(state[name])
+
+
 def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
-                          paged=None, pages=None, pages_swa=None, live=None,
-                          kv_read="gather"):
+                          memory=None, paged=None, pages=None, pages_swa=None,
+                          live=None, kv_read="gather"):
     check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
     if kind in ("mlp", "moe"):
         return _serve_ffn(kind, p, cfg, x), cache
+    if kind == "cross":
+        return _cross(p, cfg, x, memory), cache
+    if kind in RECURRENT_KINDS:
+        y, new = _recurrent_step(kind, p, cache, cfg, x)
+        if live is not None:
+            # state commits only for live rows: a mid-prefill slot's state
+            # must not advance on interleaved decode steps
+            new = {k: _where_rows(live, n, cache[k]) for k, n in new.items()}
+        _commit(cache, new)
+        return y, cache
     if kind == "mla":
         # kv_read="kernel" reaches GQA decode only: the latents stay on the
         # gather read, as in the reference (the engine warns about it)
@@ -315,31 +383,47 @@ def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
 
 
 def apply_superblock_decode(p_sb, cache_sb, cfg: ModelConfig, h, pos, *,
-                            pattern=None, paged=None, pages=None,
+                            pattern=None, memory=None, paged=None, pages=None,
                             pages_swa=None, live=None, kv_read="gather"):
     pattern = pattern or cfg.block_pattern
     for li, layer in enumerate(pattern):
         for si, kind in enumerate(layer):
             key = f"l{li}_{si}_{kind}"
             y, _ = apply_sublayer_decode(
-                kind, p_sb[key], cache_sb[key], cfg, h, pos, paged=paged,
-                pages=pages, pages_swa=pages_swa, live=live, kv_read=kv_read)
+                kind, p_sb[key], cache_sb[key], cfg, h, pos, memory=memory,
+                paged=paged, pages=pages, pages_swa=pages_swa, live=live,
+                kv_read=kv_read)
             h = h + y
     return h, cache_sb
 
 
-def apply_stack_decode(stacked, cache, cfg: ModelConfig, h, pos, *, paged=None,
-                       pages=None, pages_swa=None, live=None, kv_read="gather",
-                       start: int = 0, stop: int | None = None):
+def _check_carry(h_in, h_out, i: int):
+    """The reference's ``lax.scan`` over superblocks rejects a body whose
+    carry changes type; so does the serving stack."""
+    if h_out.dtype != h_in.dtype:
+        raise TypeError(
+            f"scan body function carry input and carry output must have "
+            f"equal types: the residual stream enters superblock {i} as "
+            f"{h_in.dtype} and leaves it as {h_out.dtype} (a float32 cache or "
+            f"state read promotes a narrower model's stream), as in the "
+            f"reference")
+
+
+def apply_stack_decode(stacked, cache, cfg: ModelConfig, h, pos, *,
+                       memory=None, paged=None, pages=None, pages_swa=None,
+                       live=None, kv_read="gather", start: int = 0,
+                       stop: int | None = None):
     """One-token decode through superblocks [start, stop) of the stack
     (all by default); cache leaves have the leading superblock dim and are
     written in place.  Returns (h, cache)."""
     stop = cfg.num_superblocks if stop is None else stop
     for i in range(start, stop):
-        h, _ = apply_superblock_decode(_index(stacked, i), _index(cache, i),
-                                       cfg, h, pos, paged=paged, pages=pages,
-                                       pages_swa=pages_swa, live=live,
-                                       kv_read=kv_read)
+        h_out, _ = apply_superblock_decode(
+            _index(stacked, i), _index(cache, i), cfg, h, pos, memory=memory,
+            paged=paged, pages=pages, pages_swa=pages_swa, live=live,
+            kv_read=kv_read)
+        _check_carry(h, h_out, i)
+        h = h_out
     return h, cache
 
 
@@ -347,14 +431,35 @@ def apply_stack_decode(stacked, cache, cfg: ModelConfig, h, pos, *, paged=None,
 # chunked prefill (C tokens per row, per-row start positions, ragged tails)
 # ---------------------------------------------------------------------------
 
+def _prefill_stateful(kind: str, p, cache, cfg: ModelConfig, x, valid):
+    """A recurrent sublayer over a chunk, as the reference's scan over its C
+    positions: each position reuses the one-token decode step and commits
+    state only where ``valid`` (padded positions leave the state and
+    token-shift inputs untouched).  Returns (y (B,C,d), cache) with the
+    final state copied into the cache in place."""
+    state = dict(cache)
+    ys = []
+    for j in range(x.shape[1]):
+        y, new = _recurrent_step(kind, p, state, cfg, x[:, j:j + 1])
+        state = {k: _where_rows(valid[:, j], n, state[k]) for k, n in new.items()}
+        ys.append(y[:, 0])
+    _commit(cache, state)
+    return torch.stack(ys, dim=1), cache
+
+
 def apply_sublayer_prefill(kind: str, p, cache, cfg: ModelConfig, h, pos,
-                           valid, *, paged=None, pages=None, pages_swa=None):
+                           valid, *, memory=None, paged=None, pages=None,
+                           pages_swa=None):
     """Chunked-prefill sublayer step.  h (B,C,d); pos (B,) start positions;
     valid (B,C) marks real tokens.  Returns (residual update, cache)."""
     check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
     if kind in ("mlp", "moe"):
         return _serve_ffn(kind, p, cfg, x), cache
+    if kind == "cross":
+        return _cross(p, cfg, x, memory), cache
+    if kind in RECURRENT_KINDS:
+        return _prefill_stateful(kind, p, cache, cfg, x, valid)
     if kind == "mla":
         return attn_lib.apply_mla_prefill(
             p, x, cache, pos, valid,
@@ -368,7 +473,7 @@ def apply_sublayer_prefill(kind: str, p, cache, cfg: ModelConfig, h, pos,
 
 
 def apply_superblock_prefill(p_sb, cache_sb, cfg: ModelConfig, h, pos, valid, *,
-                             pattern=None, paged=None, pages=None,
+                             pattern=None, memory=None, paged=None, pages=None,
                              pages_swa=None):
     pattern = pattern or cfg.block_pattern
     for li, layer in enumerate(pattern):
@@ -376,20 +481,22 @@ def apply_superblock_prefill(p_sb, cache_sb, cfg: ModelConfig, h, pos, valid, *,
             key = f"l{li}_{si}_{kind}"
             y, _ = apply_sublayer_prefill(
                 kind, p_sb[key], cache_sb[key], cfg, h, pos, valid,
-                paged=paged, pages=pages, pages_swa=pages_swa)
+                memory=memory, paged=paged, pages=pages, pages_swa=pages_swa)
             h = h + y
     return h, cache_sb
 
 
 def apply_stack_prefill(stacked, cache, cfg: ModelConfig, h, pos, valid, *,
-                        paged=None, pages=None, pages_swa=None, start: int = 0,
-                        stop: int | None = None):
+                        memory=None, paged=None, pages=None, pages_swa=None,
+                        start: int = 0, stop: int | None = None):
     """Chunked prefill through superblocks [start, stop); cache leaves have
     the leading superblock dim and are written in place.  Returns
     (h (B,C,d), cache)."""
     stop = cfg.num_superblocks if stop is None else stop
     for i in range(start, stop):
-        h, _ = apply_superblock_prefill(_index(stacked, i), _index(cache, i),
-                                        cfg, h, pos, valid, paged=paged,
-                                        pages=pages, pages_swa=pages_swa)
+        h_out, _ = apply_superblock_prefill(
+            _index(stacked, i), _index(cache, i), cfg, h, pos, valid,
+            memory=memory, paged=paged, pages=pages, pages_swa=pages_swa)
+        _check_carry(h, h_out, i)
+        h = h_out
     return h, cache

@@ -45,10 +45,18 @@ Per-direction link specs (``codec="c3sl:R=8|int8 >> bwd:c3sl:R=4"``): serving
 is forward-only, so the engine serves the link's forward channel
 (``wire_bytes_fwd`` == ``payload_wire_bytes``, ``wire_bytes_bwd`` == 0).
 
-Models: every kind ``lm.check_servable`` admits (attn, mlp, mla, moe, with
-or without the first-dense superblock).  MLA latents draw their pages from
-the full-length pool, and a recycled slot's rows are zeroed by cache key
-("stack", "first"), as in the reference.
+Models: every decoder-only arch, of every sublayer kind (attn, mlp, mla,
+moe, mamba, rwkv_tm, rwkv_cm), with or without the first-dense superblock;
+a VLM is served text-only, as the reference serves it.  MLA latents draw
+their pages from the full-length pool; a model without attn or mla (RWKV-6)
+draws none, on either layout.  A recycled slot's rows, its Mamba and RWKV
+state among them, are zeroed by cache key ("stack", "first"), as in the
+reference.  An encoder-decoder model is refused at construction
+(``ValueError``): the engine has no per-request encoder frames, and the
+reference's engine fails there too (it builds its cache without
+``frontend_emb``).  Serve one through the lockstep loop
+(``init_decode_cache(..., frontend_emb=)`` and ``decode_step``, as
+``launch/serve.py`` without ``--engine`` does).
 
 Not ported yet, and raising ``NotImplementedError`` here: the legacy
 ``prefill_mode="decode"``, ``preemption``, ``spec_decode`` (and a link's
@@ -194,6 +202,13 @@ class BatchedEngine:
                 "gather read path (kernel tier covers stacked GQA decode "
                 "only)", stacklevel=2)
         lm_lib.check_servable(cfg)
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: the engine has no "
+                "per-request encoder frames for its cache's memory (the "
+                "reference's engine fails there too); serve it through the "
+                "lockstep loop, init_decode_cache(..., frontend_emb=) and "
+                "decode_step (launch/serve.py without --engine)")
         self.codec = codec
         self.codec_params = codec_params
         self.params = params
@@ -231,25 +246,18 @@ class BatchedEngine:
                                      len_swa, num_slots * pps_swa)
             self.allocator = PageAllocator(num_pages)
             self._table = np.zeros((num_slots, pps), np.int32)
-        # As in the reference, a float KV cache is float32 whatever the
-        # weights' dtype (int8 values with float32 scales under
-        # kv_cache_quant; the MLA latents are never quantized).  A read of a
-        # float32 cache promotes a narrower model's residual stream to
-        # float32.  The reference's scan over superblocks rejects a
-        # superblock that changes the stream's dtype, unless the
-        # first-dense superblock, ahead of the scan, has promoted it
-        # already.  The port serves what the reference serves, promoting as
-        # JAX does, and refuses the rest.
-        float_cache = "mla" in kinds or ("attn" in kinds
-                                         and not cfg.kv_cache_quant)
-        if (float_cache and not cfg.first_dense_layers
-                and params["embed"].dtype != torch.float32):
-            raise NotImplementedError(
-                f"a {params['embed'].dtype} model over a float KV cache: the "
-                "cache is float32, and the reference engine does not serve "
-                "this combination either; use float32 weights, "
-                "kv_cache_quant=True (attn caches) or a first-dense "
-                "superblock")
+        # As in the reference, the cache and the recurrent state are float32
+        # whatever the weights' dtype (int8 values with float32 scales under
+        # kv_cache_quant; the MLA latents are never quantized).  Reading
+        # them promotes a narrower model's residual stream to float32, as
+        # JAX does; the serving stack then rejects a superblock that changes
+        # the stream's dtype with the reference scan's TypeError, at the
+        # first dispatch, unless the first-dense superblock, ahead of the
+        # stack, has promoted it already.  The port raises after that
+        # superblock has written its rows and state in place (the
+        # reference's scan raises as it traces, before any write), so the
+        # cache is then partly advanced; the engine cannot serve the model
+        # either way: every later dispatch raises the same TypeError.
         self.cache = lm_lib.init_decode_cache(params, cfg, num_slots, max_len,
                                               paged=self.paged)
         if self.paged is not None:

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of src/repro_torch/ (nor chip_smoke.py)
-imports jax or the JAX package ``repro``, importing every port module
+"""The port stands alone: no file of src/repro_torch/ (nor chip_smoke.py,
+nor the scripts under scripts/) imports jax or the JAX package ``repro``, importing every port module
 leaves both out of sys.modules, parameter trees carry across through numpy
 with their key paths, and chip_smoke.py refuses to run without a GPU."""
 import ast
@@ -26,7 +26,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -115,15 +115,41 @@ def test_params_and_cache_trees_carry_across(variant):
 
 
 def test_unported_features_raise():
-    """These archs train (their params init), but their decode caches come
-    with the next slice (deepseek-v2-lite-16b's serves since ROADMAP.md
-    A10a: tests/test_torch_mla_serving.py)."""
+    """These archs train and, since ROADMAP.md A10b, serve: the decode cache
+    (an encoder-decoder model's with its encoder's memory over the frames),
+    one prefill chunk and one decode step, and for the decoder-only ones
+    an engine run.  The engine refuses the encoder-decoder model (as the
+    reference's fails on it), and what stays unported (the legacy
+    ``prefill_mode="decode"``, slice 5) still raises NotImplementedError
+    on a stateful arch."""
+    from repro_torch.serving.engine import BatchedEngine, Request
+    toks = torch.tensor([[3, 4, 5, 6], [7, 8, 9, 10]])
     for arch in ("jamba-1.5-large-398b", "rwkv6-1.6b",
                  "seamless-m4t-large-v2", "pixtral-12b"):
         cfg = tconfigs.reduced(tconfigs.get_config(arch))
         params = tlm.init_lm_params(0, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md slice 4, part 3"):
-            tlm.init_decode_cache(params, cfg, 2, 16)
+        fe = (torch.randn((2, cfg.frontend_seq, cfg.frontend_dim))
+              if cfg.frontend else None)
+        cache = tlm.init_decode_cache(params, cfg, 2, 16, frontend_emb=fe)
+        assert ("memory" in cache) == cfg.is_encdec
+        logits, cache = tlm.prefill_chunk(params, cache, toks,
+                                          torch.zeros(2, dtype=torch.int32), cfg)
+        assert logits.shape == (2, cfg.vocab_size)
+        logits, _ = tlm.decode_step(params, cache, toks[:, :1],
+                                    torch.full((2,), 4, dtype=torch.int32), cfg)
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        kw = dict(num_slots=2, max_len=16, chunk_size=4)
+        if cfg.is_encdec:
+            with pytest.raises(ValueError, match="encoder-decoder"):
+                BatchedEngine(params, cfg, **kw)
+            continue
+        eng = BatchedEngine(params, cfg, **kw)
+        eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        assert [len(r.out) for r in eng.run()] == [2]
+        if arch == "rwkv6-1.6b":
+            with pytest.raises(NotImplementedError, match="slice 5"):
+                BatchedEngine(params, cfg, prefill_mode="decode", **kw)
 
 
 # ---------------------------------------------------------------------------

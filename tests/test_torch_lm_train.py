@@ -258,57 +258,48 @@ def test_causal_mask_matches_reference():
 NEW_FAMILIES = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b",
                 "jamba-1.5-large-398b", "rwkv6-1.6b", "seamless-m4t-large-v2",
                 "pixtral-12b"]
-# the attention-cache families, served since ROADMAP.md A10a
-SERVED_FAMILIES = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
 
 
 @pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_unported_kinds_and_features_raise(arch):
-    """Every arch trains.  The attention-cache families (mla, moe and the
-    first-dense superblock) now serve: ``check_servable``, the decode cache
-    with "first", one ``decode_step``, one ``prefill_chunk`` and the engine
-    run, and each of their kinds' own cache, decode and prefill.  Serving
-    the other families still raises ``NotImplementedError`` naming the next
-    slice: the decode cache, ``decode_step``, ``prefill_chunk``, the engine,
-    and each new sublayer kind's own cache, decode and prefill (mamba,
-    rwkv_tm, rwkv_cm, cross)."""
+    """Every arch trains and serves (the attention-cache families since
+    ROADMAP.md A10a, the stateful and memory ones since A10b):
+    ``check_servable``, each sublayer kind's own decode cache, the model's
+    decode cache ("first" with a first-dense superblock, "memory" for an
+    encoder-decoder model), one ``prefill_chunk``, one ``decode_step``, and
+    an engine run, which an encoder-decoder model is refused, as in the
+    reference.  What stays unported (the engine's legacy
+    ``prefill_mode="decode"``, slice 5) still raises NotImplementedError."""
     from repro_torch.serving.engine import BatchedEngine, Request
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     params = tlm.init_lm_params(0, cfg, device="cpu")
-    new_kinds = {k for layer in cfg.block_pattern for k in layer} - {"attn", "mlp"}
-    if arch in SERVED_FAMILIES:
-        assert new_kinds and new_kinds <= set(tstack.SERVE_KINDS)
-        tlm.check_servable(cfg)
-        cache = tlm.init_decode_cache(params, cfg, 2, 16)
-        assert ("first" in cache) == bool(cfg.first_dense_layers)
-        toks = torch.tensor([[3, 4, 5, 6], [7, 8, 9, 10]])
-        logits, cache = tlm.prefill_chunk(params, cache, toks,
-                                          torch.zeros(2, dtype=torch.int32), cfg)
-        assert logits.shape == (2, cfg.vocab_size)
-        logits, _ = tlm.decode_step(params, cache, toks[:, :1],
-                                    torch.full((2,), 4, dtype=torch.int32), cfg)
-        assert logits.shape == (2, 1, cfg.vocab_size)
-        assert bool(torch.isfinite(logits).all())
-        eng = BatchedEngine(params, cfg, num_slots=2, max_len=16, chunk_size=4)
-        eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
-        assert [len(r.out) for r in eng.run()] == [2]
+    kinds = {k for layer in cfg.block_pattern for k in layer}
+    assert kinds <= set(tstack.SERVE_KINDS)
+    tlm.check_servable(cfg)
+    for kind in sorted(kinds):
+        c = tstack.init_sublayer_cache(kind, cfg, 2, 16, torch.float32,
+                                       device="cpu")
+        assert (c == {}) == (kind in ("mlp", "moe", "cross"))
+    fe = (torch.randn((2, cfg.frontend_seq, cfg.frontend_dim))
+          if cfg.frontend else None)
+    cache = tlm.init_decode_cache(params, cfg, 2, 16, frontend_emb=fe)
+    assert ("first" in cache) == bool(cfg.first_dense_layers)
+    assert ("memory" in cache) == cfg.is_encdec
+    toks = torch.tensor([[3, 4, 5, 6], [7, 8, 9, 10]])
+    logits, cache = tlm.prefill_chunk(params, cache, toks,
+                                      torch.zeros(2, dtype=torch.int32), cfg)
+    assert logits.shape == (2, cfg.vocab_size)
+    logits, _ = tlm.decode_step(params, cache, toks[:, :1],
+                                torch.full((2,), 4, dtype=torch.int32), cfg)
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    kw = dict(num_slots=2, max_len=16, chunk_size=4)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        BatchedEngine(params, cfg, prefill_mode="decode", **kw)
+    if cfg.is_encdec:
+        with pytest.raises(ValueError, match="encoder-decoder"):
+            BatchedEngine(params, cfg, **kw)
         return
-    nxt = "ROADMAP.md slice 4, part 3"
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    calls = [lambda: tlm.check_servable(cfg),
-             lambda: tlm.init_decode_cache(params, cfg, 2, 16),
-             lambda: tlm.decode_step(params, {}, toks[:, :1], 0, cfg),
-             lambda: tlm.prefill_chunk(params, {}, toks, torch.zeros(2), cfg),
-             lambda: BatchedEngine(params, cfg, num_slots=2, max_len=16)]
-    h = torch.zeros((2, 1, cfg.d_model))
-    for kind in sorted(new_kinds - set(tstack.SERVE_KINDS)):
-        calls += [
-            lambda k=kind: tstack.init_sublayer_cache(k, cfg, 2, 16,
-                                                      torch.float32, device="cpu"),
-            lambda k=kind: tstack.apply_sublayer_decode(k, {}, {}, cfg, h, 0),
-            lambda k=kind: tstack.apply_sublayer_prefill(
-                k, {}, {}, cfg, h, torch.zeros(2), torch.ones((2, 1), dtype=bool))]
-    assert new_kinds or cfg.frontend
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=nxt):
-            call()
+    eng = BatchedEngine(params, cfg, **kw)
+    eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+    assert [len(r.out) for r in eng.run()] == [2]

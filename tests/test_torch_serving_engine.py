@@ -142,16 +142,16 @@ def test_bf16_engine_matches_reference_engine(kv_layout, kv_read):
 def test_bf16_model_over_float_cache_raises_like_the_reference():
     """The float KV cache is float32 in both engines; a bfloat16 model over
     it promotes the residual stream mid-stack, which the reference's scan
-    rejects on the first prefill, and which the port refuses at once."""
+    rejects on the first prefill, and the port's serving stack with the
+    same TypeError at the same call."""
     jcfg, _, pj, pt = _weights("bf16-int8")
     jcfg = dataclasses.replace(jcfg, kv_cache_quant=False)
     tcfg = _cfgs("plain")[1]
-    jeng = jengine.BatchedEngine(pj, jcfg, kv_layout="paged", **ENGINE_KW)
-    jeng.submit(jengine.Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
-    with pytest.raises(TypeError, match="carry"):
-        jeng.run()
-    with pytest.raises(NotImplementedError, match="kv_cache_quant=True"):
-        tengine.BatchedEngine(pt, tcfg, kv_layout="paged", **ENGINE_KW)
+    for mod, p, cfg in ((jengine, pj, jcfg), (tengine, pt, tcfg)):
+        eng = mod.BatchedEngine(p, cfg, kv_layout="paged", **ENGINE_KW)
+        eng.submit(mod.Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        with pytest.raises(TypeError, match="carry"):
+            eng.run()
 
 
 def test_engine_interleave_and_eos_match_reference():

@@ -245,18 +245,18 @@ def test_bf16_mla_model_serves_like_the_reference(kv_layout):
 def test_bf16_mla_model_without_first_dense_raises_like_the_reference():
     """Without the first-dense superblock the stacked MLA read changes the
     stream's dtype inside the reference's scan, which it rejects on the
-    first prefill; the port refuses the combination at once."""
+    first prefill; the port's serving stack raises the same TypeError at
+    the same call."""
     jcfg, tcfg, pj, pt = _weights(DSV2, "bfloat16")
     over = dict(first_dense_layers=0, num_layers=2)
     jcfg, tcfg = (dataclasses.replace(c, **over) for c in (jcfg, tcfg))
     pj = {k: v for k, v in pj.items() if k != "first"}
     pt = {k: v for k, v in pt.items() if k != "first"}
-    jeng = jengine.BatchedEngine(pj, jcfg, kv_layout="paged", **ENGINE_KW)
-    jeng.submit(jengine.Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
-    with pytest.raises(TypeError, match="carry"):
-        jeng.run()
-    with pytest.raises(NotImplementedError, match="float KV cache"):
-        tengine.BatchedEngine(pt, tcfg, kv_layout="paged", **ENGINE_KW)
+    for mod, p, cfg in ((jengine, pj, jcfg), (tengine, pt, tcfg)):
+        eng = mod.BatchedEngine(p, cfg, kv_layout="paged", **ENGINE_KW)
+        eng.submit(mod.Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        with pytest.raises(TypeError, match="carry"):
+            eng.run()
 
 
 @pytest.mark.parametrize("arch", [PHI, DSV2])
