@@ -268,6 +268,45 @@ Phases (any failure exits non-zero, and no result line is printed):
       only main-path launches: the record's count must equal these runs'
       steps and chunks): phase 4's kernel-against-gather checks.
 
+15. Serving II on ``deepseek-7b`` at full width and depth, at phase 4's
+   settings (float32, TF32 off, 8 slots, max_len 512, page 16, chunk 64,
+   paged, the kernel read, 16 requests of 128 + 32), after
+   ``free_cuda()``, through phase 13's ``serve_family`` (its model checks
+   at full depth, then a plan of six runs, each held by
+   ``check_family_run``: bind and unbind by shape as its vanilla steps,
+   prefill chunks and verify/commit rounds imply, the forward wire bytes
+   of its vanilla steps and chunks alone, the draft wire bytes of its
+   rounds, the paged kernel once per attn layer a vanilla step).  A
+   yardstick run records the vanilla logits' top-2 gap at every decoded
+   position, so a token that differs from it passes only at a near-tie:
+   at the request's first differing position the gap is under 1e-4 of
+   max|logit|, or a partner in its codec group flipped so at an earlier
+   step; the flips are counted and printed.
+   - A vanilla run, held to phase 4's kernel run (same weights and
+     prompts).
+   a. Speculative decoding, tied head, k 4 pinned, over the link
+      ``c3sl:R=4,backend=pallas >> draft:c3sl:R=8,backend=pallas``: tokens
+      against the vanilla run; spec rounds, accepted, rejected, rollbacks;
+      (128, 4, 4096) a prefill chunk, (8, 4, 4096) a verify and a commit,
+      (1, 8, 4096) the feedback through the draft channel; no paged-kernel
+      launch (verify and commit read through the gather); after draining,
+      the cache against the vanilla engine's: integer leaves exactly, float
+      leaves within 1e-4 of each leaf's max|value| (on the pages of codec
+      groups whose tokens all agree, where some differ).  Then its decode
+      windows timed and profiled: ms a round, device time a round, idle
+      share.
+   b. The copy head, ``adaptive=True``: tokens; the k schedule
+      (``k_served``).
+   c. Preemption, no codec (rows independent, so outputs are a function
+      of the prompt; yardstick a vanilla run without the codec): a 60-page
+      pool (six requests' reservations), twelve priority-0 requests, then
+      four priority-1 ones after the first ``tick()``; one running request
+      withdrawn and resubmitted; evictions > 0, the pool whole after every
+      tick, the stream events joined per uid equal to each output with no
+      gap, each admission's pages drawn.
+   d. The legacy ``prefill_mode="decode"``, 4 requests with the codec:
+      tokens against the vanilla run's for them (the same codec group).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -350,11 +389,16 @@ FAMILY_SERVE_SHAPES = [(2, 4, 2048), (128, 4, 2048)]
 # (rwkv6-1.6b's 2048 are FAMILY_SERVE_SHAPES', pixtral-12b's 5120
 # MIXED_SERVE_SHAPES')
 STATE_SERVE_SHAPES = [(2, 4, 1024), (128, 4, 1024), (2, 4, 256), (128, 4, 256)]
+# phase 15's new B1/B2 shapes at D 4096: a verify or commit chunk at k 4 (G
+# = 4 positions x 8 slots / R 4 = 8) and k 2 (G 4), the tied head's
+# feedback through the draft channel at R 8 (G 1); k 8's (16, 4, 4096) is
+# the ResNet-50 step's shape
+SPEC_SERVE_SHAPES = [(8, 4, 4096), (4, 4, 4096), (1, 8, 4096)]
 # phase 6: training, serving (decode, prefill chunk) and BENCH_roofline.json
 # circconv shapes (B 64 = G 16 x R 4; its D = 4096 is the training one)
 TIME_SHAPES = ([(16, 4, 2048), (16, 4, 4096), (2, 4, 4096), (128, 4, 4096),
                 (16, 4, 256), (16, 4, 1024)] + MIXED_SERVE_SHAPES
-               + FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES)
+               + FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES + SPEC_SERVE_SHAPES)
 TOL = {"float32": 1e-5}
 # bfloat16 outputs are rounded once, by half an ulp (at most 2^-8 of the
 # element, 2^-8/sqrt(3) in RMS), so their limits scale with the compared
@@ -458,6 +502,16 @@ STATE_SERVE = [("a", "rwkv6-1.6b", None, False),
 # (tests/test_arch_smoke.py); any other model is held to LOGIT_TOL
 STATE_LOGIT_TOL = 2e-3
 LOCKSTEP_STEPS = 32         # run b's decode steps through the serve CLI
+# phase 15, serving II on deepseek-7b at phase 4's settings: speculative
+# decoding over the draft channel (the tied head's feedback at R 8), slot
+# preemption with withdraw and stream events, the legacy prefill mode
+SPEC_LINK = SERVE_CODEC + " >> draft:c3sl:R=8,backend=pallas"
+SPEC_K = 4
+PREEMPT_PAGES = 60          # six requests' reservations of 10 pages
+PREEMPT_LOW, PREEMPT_HIGH = 12, 4
+LEGACY_REQUESTS = 4
+NEAR_TIE = 1e-4             # a flip's vanilla top-2 gap, of max|logit|
+CACHE_TOL = 1e-4            # spec cache vs vanilla, of each leaf's max|value|
 
 
 class SmokeFailure(RuntimeError):
@@ -605,7 +659,7 @@ def kernel_checks(dev) -> dict:
             for k in ("bind_superpose", "unbind")}
     routed = list(dict.fromkeys(KERNEL_SHAPES + FFT_EDGE_SHAPES + cp_kernel_shapes()
                                 + FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES
-                                + MIXED_SHAPES + FFT4_SHAPES
+                                + SPEC_SERVE_SHAPES + MIXED_SHAPES + FFT4_SHAPES
                                 + FFT4_EDGE_SHAPES + LM_SHAPES))
     # errors kept by kernel: the power-of-two one-pass kernels', the
     # mixed-radix ones', the four-step ones' and the direct ones' apart
@@ -1001,14 +1055,15 @@ def serve_prompts(n: int, vocab: int) -> list:
 
 @contextlib.contextmanager
 def finite_logits():
-    """Within the block, every ``decode_step`` and ``prefill_chunk`` the
-    engine calls ANDs "all logits finite" into a flag on the device (no
-    host sync); yields a one-element list that holds the flag's value on
-    exit."""
+    """Within the block, every ``decode_step``, ``prefill_chunk`` and
+    ``verify_chunk`` the engine calls ANDs "all logits finite" into a flag
+    on the device (no host sync); yields a one-element list that holds the
+    flag's value on exit."""
     import torch
     from repro_torch.models import lm as lm_lib
     flag = None
-    orig = {n: getattr(lm_lib, n) for n in ("decode_step", "prefill_chunk")}
+    orig = {n: getattr(lm_lib, n) for n in ("decode_step", "prefill_chunk",
+                                           "verify_chunk")}
 
     def wrap(fn):
         def probed(*a, **kw):
@@ -1031,31 +1086,38 @@ def finite_logits():
 
 
 def make_engine(params, cfg, kv_read: str, **over):
+    """The engine at phase 4's settings; ``over`` overrides them (the codec
+    included)."""
     from repro_torch.serving.engine import BatchedEngine
-    return BatchedEngine(params, cfg, codec=SERVE_CODEC, seed=SEED,
-                         kv_read=kv_read, **dict(SERVE_ENGINE, **over))
+    return BatchedEngine(params, cfg, seed=SEED, kv_read=kv_read,
+                         **{**SERVE_ENGINE, "codec": SERVE_CODEC, **over})
 
 
-def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
+def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
+              drive=None, gaps=False, **over):
     """One engine run of ``n_req`` requests (``over`` overrides
     SERVE_ENGINE's settings), launch counts and, with experts, the MoE
-    routing log reset just before and read just after.  Returns (engine,
-    record)."""
+    routing log reset just before and read just after.  ``drive(eng,
+    prompts)`` replaces "submit every prompt, then ``run()``" and returns
+    (the finished requests, a dict merged into the record).  With ``gaps``
+    the vanilla logits' top-2 gaps are recorded (``vanilla_gaps``).  The
+    record keeps each admission's pages (``page_owners``: uid, pages, in
+    order).  Returns (engine, record)."""
     import torch
     from repro_torch.kernels import circconv
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import moe
     from repro_torch.serving.engine import Request
     eng = make_engine(params, cfg, kv_read, **over)
-    drawn = []
-    if eng.allocator is not None:
-        alloc = eng.allocator.alloc
+    owners = []
+    alloc = eng._alloc_slot_pages
 
-        def counted_alloc(n):
-            got = alloc(n)
-            drawn.append(len(got or ()))
-            return got
-        eng.allocator.alloc = counted_alloc
+    def owned_alloc(i, req):
+        got = alloc(i, req)
+        if got and eng.slots[i].pages:
+            owners.append((req.uid, list(eng.slots[i].pages)))
+        return got
+    eng._alloc_slot_pages = owned_alloc
     prompts = serve_prompts(n_req, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1063,11 +1125,15 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
     circconv.reset_launch_counts()
     moe.ROUTING_LOG = [] if cfg.num_experts else None
     try:
-        with finite_logits() as finite:
+        with finite_logits() as finite, (vanilla_gaps(eng) if gaps else
+                                         contextlib.nullcontext({})) as probe:
             t0 = time.perf_counter()
-            for u, p in enumerate(prompts):
-                eng.submit(Request(uid=u, prompt=p, max_new_tokens=max_new))
-            done = eng.run()
+            if drive is None:
+                for u, p in enumerate(prompts):
+                    eng.submit(Request(uid=u, prompt=p, max_new_tokens=max_new))
+                done, info = eng.run(), {}
+            else:
+                done, info = drive(eng, prompts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         log = moe.ROUTING_LOG
@@ -1080,18 +1146,28 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int, **over):
     outs = {r.uid: r.out for r in done}
     gen = sum(len(o) for o in outs.values())
     st = eng.stats
-    rec = {"kv_read": kv_read, "requests": n_req, "max_new": max_new,
-           "completed": len(done), "generated": gen, "wall_s": wall,
-           "tokens_per_s": gen / wall,
+    spec = eng.spec_cfg
+    rec = {"kv_read": kv_read, "kv_layout": eng.kv_layout, "requests": n_req,
+           "max_new": max_new, "completed": len(done), "generated": gen,
+           "wall_s": wall, "tokens_per_s": gen / wall,
            "total_tokens_per_s": (gen + n_req * SERVE_PROMPT) / wall,
            "mean_ttft_ms": statistics.mean(r.t_first - r.t_submit
                                            for r in done) * 1e3,
            "finite_logits": finite[0], "launches": counts,
            "route_launches": routes, "record_launches": by_kernel,
-           "shape_launches": shapes, "outs": outs, "pages_drawn": sum(drawn),
+           "shape_launches": shapes, "outs": outs, "page_owners": owners,
+           "pages_drawn": sum(len(p) for _, p in owners),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "codec_R": getattr(eng.codec, "R", None),
+           # the draft channel's feedback codec's R (none for the copy head)
+           "draft_R": (getattr(eng.draft_codec, "R", None)
+                       if spec is not None and spec.needs_feedback else None),
+           "k_served": dict(eng.k_served), **probe, **info,
            **{k: st[k] for k in ("decode_steps", "prefill_chunks", "dispatches",
-                                 "wire_bytes_fwd", "kv_read_execution_mode",
+                                 "wire_bytes_fwd", "wire_bytes_draft",
+                                 "spec_rounds", "spec_accepted", "spec_rejected",
+                                 "spec_rollbacks", "evictions", "withdrawn",
+                                 "kv_read_execution_mode",
                                  "codec_execution_mode")}}
     check(len(done) == n_req and all(len(o) == max_new for o in outs.values()),
           f"serve {kv_read}: {len(done)} of {n_req} requests, lengths "
@@ -1197,12 +1273,14 @@ def token_agreement(outs_a: dict, outs_b: dict) -> dict:
 
 
 def decode_window_times(eng, windows=3) -> dict:
-    """The engine's decode-step time at a full batch: 8 fresh requests,
-    one ``tick()`` to admit and prefill them and warm up, then ``windows``
-    ticks of one 8-step decode window each (with their admit/retire
-    boundaries) timed on the host clock, each ending in a synchronise; then
-    one tick under ``torch.profiler``: the paged kernel's share of device
-    time and the device's idle share.  The engine is drained at the end."""
+    """The engine's decode time at a full batch: 8 fresh requests, one
+    ``tick()`` to admit and prefill them and warm up, then ``windows`` ticks
+    of one decode window each (with their admit/retire boundaries) timed on
+    the host clock, each ending in a synchronise; then one tick under
+    ``torch.profiler``: the paged kernel's share of device time and the
+    device's idle share.  The unit is a decode step, or a verify/commit
+    round where the engine speculates.  The engine is drained at the
+    end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1213,23 +1291,28 @@ def decode_window_times(eng, windows=3) -> dict:
                            max_new_tokens=(windows + 3) * n))
 
     def timed_tick():
-        s0 = eng.stats["decode_steps"]
+        s0, r0 = eng.stats["decode_steps"], eng.stats["spec_rounds"]
         t0 = time.perf_counter()
         eng.tick()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, eng.stats["decode_steps"] - s0
+        steps = eng.stats["decode_steps"] - s0
+        rounds = eng.stats["spec_rounds"] - r0
+        # a speculative window's decode_steps count the tokens it emitted
+        return (time.perf_counter() - t0, rounds or steps,
+                steps if rounds else steps * eng.num_slots)
 
     eng.tick()
     torch.cuda.synchronize()
-    per_step = []
+    per_unit, tokens_per_s = [], []
     for _ in range(windows):
-        dt, executed = timed_tick()
-        per_step.append(dt * 1e3 / executed)
+        dt, units, emitted = timed_tick()
+        per_unit.append(dt * 1e3 / units)
+        tokens_per_s.append(emitted / dt)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dt, executed = timed_tick()
+        dt, executed, _ = timed_tick()
         wall_ms = dt * 1e3
     eng.run()
-    step_ms = statistics.median(per_step)
+    unit_ms = statistics.median(per_unit)
     rows, launches, host = {}, 0, []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total:
@@ -1239,8 +1322,9 @@ def decode_window_times(eng, windows=3) -> dict:
             host.append((e.key, e.self_cpu_time_total / 1e3 / executed,
                          e.count / executed))
     busy = sum(rows.values()) / executed
-    out = {"decode_step_ms": step_ms, "per_window_step_ms": per_step,
-           "tokens_per_s_full_batch": eng.num_slots / step_ms * 1e3}
+    out = {"unit": "round" if eng.stats["spec_rounds"] else "decode step",
+           "unit_ms": unit_ms, "per_window_unit_ms": per_unit,
+           "tokens_per_s_full_batch": statistics.median(tokens_per_s)}
     if not busy:
         out["profile"] = None
         return out
@@ -1262,17 +1346,46 @@ def decode_window_times(eng, windows=3) -> dict:
                or "unbind_kernel" in k) / executed
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:12]
     out["profile"] = {
-        "device_ms_per_step": busy, "wall_ms_per_step": wall_ms / executed,
+        "device_ms_per_unit": busy, "wall_ms_per_unit": wall_ms / executed,
         "idle_share_profiled": 1 - busy / (wall_ms / executed),
-        "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
-        "paged_kernel_ms_per_step": paged, "paged_kernel_share": paged / busy,
-        "paged_pass_ms_per_step": pass_ms,
-        "circconv_ms_per_step": circ, "device_ops_per_step": launches / executed,
-        "top": [{"name": k[:90], "ms_per_step": t / executed} for k, t in top],
+        "idle_share_vs_unprofiled_unit": 1 - busy / unit_ms,
+        "paged_kernel_ms_per_unit": paged, "paged_kernel_share": paged / busy,
+        "paged_pass_ms_per_unit": pass_ms,
+        "circconv_ms_per_unit": circ, "device_ops_per_unit": launches / executed,
+        "top": [{"name": k[:90], "ms_per_unit": t / executed} for k, t in top],
         # host self time by op (profiled, so inflated by the profiler)
-        "host_top": [{"name": k[:60], "ms_per_step": t, "calls_per_step": c}
+        "host_top": [{"name": k[:60], "ms_per_unit": t, "calls_per_unit": c}
                      for k, t, c in sorted(host, key=lambda r: -r[1])[:10]]}
     return out
+
+
+def print_window(card, what: str, w: dict, top=12):
+    """``decode_window_times``' lines for ``what``."""
+    u = w["unit"]
+    print(f"time [{card}] serve {what} {u} (8 live slots, float32): "
+          f"{w['unit_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} tok/s)",
+          flush=True)
+    if w["profile"] is None:
+        print(f"profile [{card}] {what} decode window: the profiler saw no "
+              "device time (not measured)")
+        return
+    wp = w["profile"]
+    passes = ", ".join(f"{k} {v:.4f}" for k, v in wp["paged_pass_ms_per_unit"].items())
+    print(f"profile [{card}] {what} decode window: device "
+          f"{wp['device_ms_per_unit']:.3f} ms/{u}, idle "
+          f"{wp['idle_share_vs_unprofiled_unit']:.3f} of the unprofiled {u} "
+          f"({wp['idle_share_profiled']:.3f} profiled); paged kernel "
+          f"{wp['paged_kernel_ms_per_unit']:.4f} ms/{u} "
+          f"({wp['paged_kernel_share']:.4f} of device time; passes {passes} "
+          f"overlapping); circconv {wp['circconv_ms_per_unit']:.4f} ms/{u} "
+          f"({wp['circconv_ms_per_unit'] / wp['device_ms_per_unit']:.5f} of "
+          f"device time); {wp['device_ops_per_unit']:.0f} device ops/{u}",
+          flush=True)
+    for r in wp["top"][:top]:
+        print(f"  {r['ms_per_unit']:.4f} ms/{u}  {r['name']}")
+    for r in wp["host_top"][:top]:
+        print(f"  host {r['ms_per_unit']:.3f} ms/{u} x{r['calls_per_unit']:.0f}"
+              f"  {r['name']}")
 
 
 def serving_path(dev) -> dict:
@@ -1351,40 +1464,72 @@ def analytic_cache_bytes(cfg, kv_layout: str) -> int:
 
 
 def check_family_run(rec, cfg):
-    """What a phase 13 or 14 engine run must show: bind and unbind once per decode
-    step at (G, R, D) = (num_slots / 4, 4, d_model) and once per prefill
-    chunk at (chunk x G, 4, d_model), every one on the FFT route (none
-    direct); the wire bytes exactly those payloads (float32, G x D a step,
-    chunk x G x D a chunk); every routed MoE sublayer called once per step
-    and chunk, with no token copy dropped; the paged kernel of the cache's
-    dtype once per attn layer per decode step under the kernel read, the
-    other one never; the codec on the CUDA kernels."""
-    steps, chunks = rec["decode_steps"], rec["prefill_chunks"]
-    C = SERVE_ENGINE["chunk_size"]
-    G, D = SERVE_ENGINE["num_slots"] // 4, cfg.d_model
-    want = {f"{n}/{g}x4x{D}": k for n in ("bind_superpose", "unbind")
-            for g, k in ((C * G, chunks), (G, steps))}
+    """What a phase 13, 14 or 15 engine run must show.  With the forward
+    codec at R (G = num_slots / R): bind and unbind once per vanilla decode
+    step at (G, R, d_model), once per prefill chunk at (chunk x G, R,
+    d_model), twice per speculative round at k (k x G, R, d_model: the
+    verify and the commit), and, with a tied draft head, once per round at
+    (num_slots / R', R', d_model) for the feedback through the draft
+    channel at R'; every one on the FFT route (none direct); none without
+    a codec.  The forward wire bytes exactly the vanilla steps' and chunks'
+    payloads (float32, G x D a step, chunk x G x D a chunk; nothing in a
+    verify round); the draft wire bytes exactly each round's feedback
+    payload plus its k - 1 draft ids a slot.  Every routed MoE sublayer
+    called once per step, chunk, verify and commit, with no token copy
+    dropped; the paged kernel of the cache's dtype once per attn layer per
+    vanilla decode step under the kernel read (verify and commit read
+    through the gather), the other one never; the codec on the CUDA
+    kernels."""
+    steps, chunks, rounds = (rec[k] for k in ("decode_steps", "prefill_chunks",
+                                              "spec_rounds"))
+    vanilla = steps - rec["spec_accepted"]
+    C, B = SERVE_ENGINE["chunk_size"], SERVE_ENGINE["num_slots"]
+    D, R, Rd = cfg.d_model, rec["codec_R"], rec["draft_R"]
+    want = {}
+
+    def add(G, R_, n):
+        for name in ("bind_superpose", "unbind"):
+            key = f"{name}/{G}x{R_}x{D}"
+            want[key] = want.get(key, 0) + n
+    wire = 0
+    if R is not None:
+        G = B // R
+        add(C * G, R, chunks)
+        add(G, R, vanilla)
+        for k, n in rec["k_served"].items():
+            add(k * G, R, 2 * n)
+        wire = (vanilla * G + chunks * C * G) * D * 4
+    if Rd is not None:
+        add(B // Rd, Rd, rounds)
+    want = dict(sorted((k, n) for k, n in want.items() if n))
     what = f"serve {cfg.name} {rec['kv_read']}"
-    check(rec["shape_launches"] == dict(sorted(want.items())),
+    check(rec["shape_launches"] == want,
           f"{what}: circconv launches {rec['shape_launches']}, want {want}")
-    check_fft_route(rec["route_launches"], steps + chunks, what)
-    wire = (steps * G + chunks * C * G) * D * 4
+    check_fft_route(rec["route_launches"], sum(want.values()) // 2, what)
     check(rec["wire_bytes_fwd"] == wire,
           f"{what}: wire bytes {rec['wire_bytes_fwd']}, want {wire}")
+    tok = 1 if cfg.vocab_size <= 256 else 2 if cfg.vocab_size <= 65536 else 4
+    feedback = B // Rd * D * 4 if Rd is not None else 0
+    draft = sum(n * (B * (k - 1) * tok + feedback)
+                for k, n in rec["k_served"].items())
+    check(rec["wire_bytes_draft"] == draft, f"{what}: draft wire bytes "
+          f"{rec['wire_bytes_draft']}, want {draft}")
     if cfg.num_experts:
-        check(rec["moe_calls"] == moe_layers(cfg) * (steps + chunks)
+        calls = vanilla + chunks + 2 * rounds
+        check(rec["moe_calls"] == moe_layers(cfg) * calls
               and rec["moe_dropped"] == 0,
               f"{what}: {rec['moe_calls']} MoE calls ({moe_layers(cfg)} layers "
-              f"x {steps + chunks} calls), {rec['moe_dropped']} copies dropped")
+              f"x {calls} calls), {rec['moe_dropped']} copies dropped")
     name, other = (("paged_attention_quant", "paged_attention")
                    if cfg.kv_cache_quant else
                    ("paged_attention", "paged_attention_quant"))
-    n = n_attn_layers(cfg) * steps if rec["kv_read"] == "kernel" else 0
+    n = n_attn_layers(cfg) * vanilla if rec["kv_read"] == "kernel" else 0
     got = {k: rec["launches"][k] for k in (name, other)}
     check(got == {name: n, other: 0}, f"{what}: paged launches {got}, want "
           f"{ {name: n, other: 0} }")
-    check(rec["codec_execution_mode"] == "cuda-kernel",
-          f"{what}: codec ran as {rec['codec_execution_mode']}")
+    if R is not None:
+        check(rec["codec_execution_mode"] == "cuda-kernel",
+              f"{what}: codec ran as {rec['codec_execution_mode']}")
 
 
 def profiled_call(fn) -> dict:
@@ -1699,24 +1844,47 @@ def lockstep_times(params, cfg, dev, frontend, steps=8) -> dict:
                         1 - prof["device_ms"] / step_ms}}
 
 
+@dataclasses.dataclass
+class ServeRun:
+    """One engine run of ``serve_family``'s plan, at phase 4's settings but
+    for ``over``; ``drive`` as ``serve_run``'s.  ``against`` names an
+    earlier run of the plan (or one passed in ``refs``) whose greedy tokens
+    this run's must equal but for near-ties (``near_tie_flips``); with
+    ``cache`` the two engines' caches are held together after draining
+    (``cache_gaps``).  ``timed``: the engine's decode windows are then
+    timed and profiled (``decode_window_times``).  ``expect(rec)`` holds
+    the run to what its settings imply beyond ``check_family_run``."""
+    key: str
+    kv_read: str = "kernel"
+    n_req: int = SERVE_REQUESTS
+    over: dict = dataclasses.field(default_factory=dict)
+    drive: object = None
+    against: str | None = None
+    cache: bool = False
+    timed: bool = False
+    expect: object = None
+
+
 def serve_family(dev, label: str, arch: str, layers, small=False,
-                 quant=False) -> dict:
-    """Phases 13 and 14 for one arch at phase 4's settings: full width, its
-    depth cut to ``layers`` (None: its own), or at ``reduced()`` size with
-    ``small``.  Every model: served logits against ``lm_forward`` (within
-    STATE_LOGIT_TOL with a recurrent sublayer, LOGIT_TOL without), its
-    recurrent and cross sublayers' times, its cache bytes against
+                 quant=False, plan=None, refs=None) -> dict:
+    """Phases 13, 14 and 15 for one arch at phase 4's settings: full width,
+    its depth cut to ``layers`` (None: its own), or at ``reduced()`` size
+    with ``small``.  Every model: served logits against ``lm_forward``
+    (within STATE_LOGIT_TOL with a recurrent sublayer, LOGIT_TOL without),
+    its recurrent and cross sublayers' times, its cache bytes against
     ``analytic_cache_bytes``.  An encoder-decoder model: the engine's
     refusal, then the lockstep loop through the serve CLI and its times.
     Any other, through the engine: with an attn sublayer, phase 4's
-    kernel-against-gather checks (paged, and the gather read on the
-    contiguous layout with ``small``), then with ``quant`` bfloat16
-    weights over int8 KV through the int8 kernel; without one,
-    kv_read="kernel" refused and the gather read on both layouts.  Each
-    run held by ``check_family_run`` and by the pages it drew (each
-    request's reservation where an attn or mla cache is paged, else none);
-    paged and contiguous greedy tokens equal; the first engine's decode
-    window timed and profiled."""
+    teacher-forced kernel-against-gather logits; without one,
+    kv_read="kernel" refused.  Then the ``plan`` of ``ServeRun``s (by
+    default with an attn sublayer the kernel and gather reads, paged, and
+    with ``small`` the gather read on the contiguous layout; without one
+    the gather read on both layouts; the first run timed), then with
+    ``quant`` bfloat16 weights over int8 KV through the int8 kernel.  Each
+    run held by ``check_family_run``, by the pages it drew (each
+    admission's reservation where an attn or mla cache is paged, else
+    none) and by its ``against`` and ``expect``; paged and contiguous
+    greedy tokens equal."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.interop import tree_leaves
@@ -1753,11 +1921,13 @@ def serve_family(dev, label: str, arch: str, layers, small=False,
         res["seconds"] = time.perf_counter() - t0
         return res
     del fe
+    contiguous = dict(kv_layout="contiguous")
     if n_attn_layers(cfg):
         res["teacher_forced"] = teacher_forced_parity(params, cfg, dev)
-        plan = [("kernel", "paged"), ("gather", "paged")]
+        default = [ServeRun("kernel_paged", timed=True),
+                   ServeRun("gather_paged", "gather")]
         if small:
-            plan.append(("gather", "contiguous"))
+            default.append(ServeRun("gather_contiguous", "gather", over=contiguous))
     else:
         try:
             make_engine(params, cfg, "kernel")
@@ -1765,16 +1935,30 @@ def serve_family(dev, label: str, arch: str, layers, small=False,
             res["kernel_read_refused"] = str(e)
         check("kernel_read_refused" in res,
               f"{arch}: kv_read='kernel' without an attn sublayer did not raise")
-        plan = [("gather", "paged"), ("gather", "contiguous")]
-    run_cfg = {}
-    for kv_read, layout in plan:
-        key = f"{kv_read}_{layout}"
-        eng, runs[key] = serve_run(params, cfg, kv_read, SERVE_REQUESTS,
-                                   SERVE_NEW, kv_layout=layout)
-        run_cfg[key] = cfg
-        res[f"cache_bytes_{layout}"] = eng.cache_bytes
-        if "window" not in res:
+        default = [ServeRun("gather_paged", "gather", timed=True),
+                   ServeRun("gather_contiguous", "gather", over=contiguous)]
+    plan = plan or default
+    yardsticks = {p.against for p in plan}
+    keep = {p.against for p in plan if p.cache}
+    known, kept, run_cfg = dict(refs or {}), {}, {}
+    for p in plan:
+        eng, rec = serve_run(params, cfg, p.kv_read, p.n_req, SERVE_NEW,
+                             drive=p.drive, gaps=p.key in yardsticks, **p.over)
+        runs[p.key] = known[p.key] = rec
+        run_cfg[p.key] = cfg
+        res.setdefault(f"cache_bytes_{eng.kv_layout}", eng.cache_bytes)
+        if p.against is not None:
+            ref = known[p.against]
+            rec["flips"] = near_tie_flips(f"{label} {p.key}", rec, ref,
+                                          ref if "gaps" in ref else rec)
+            if p.cache:
+                rec["cache"] = cache_gaps(kept.pop(p.against), eng, ref, rec)
+        if p.expect is not None:
+            p.expect(rec)
+        if p.timed:
             res["window"] = decode_window_times(eng)
+        if p.key in keep:
+            kept[p.key] = eng
         del eng
         free_cuda()
     for layout in ("paged", "contiguous"):
@@ -1788,7 +1972,7 @@ def serve_family(dev, label: str, arch: str, layers, small=False,
     if "gather_contiguous" in runs:
         check(runs["gather_paged"]["outs"] == runs["gather_contiguous"]["outs"],
               f"{arch}: greedy tokens differ between paged and contiguous")
-    del params
+    del params, kept
     free_cuda()
     if quant and n_attn_layers(cfg):
         cfg_q, params = serve_model(torch.bfloat16, dev, quant=True, arch=arch,
@@ -1801,8 +1985,10 @@ def serve_family(dev, label: str, arch: str, layers, small=False,
     ps = SERVE_ENGINE["page_size"]
     for key, rec in runs.items():
         check_family_run(rec, run_cfg[key])
-        want = (rec["requests"] * -(-(SERVE_PROMPT + rec["max_new"]) // ps)
-                if key.endswith("_paged") and kinds & {"attn", "mla"} else 0)
+        admissions = rec["requests"] + rec["evictions"] + rec["withdrawn"]
+        want = (admissions * -(-(SERVE_PROMPT + rec["max_new"]) // ps)
+                if rec["kv_layout"] == "paged" and kinds & {"attn", "mla"}
+                else 0)
         check(rec["pages_drawn"] == want, f"{arch} {key}: "
               f"{rec['pages_drawn']} pages drawn, want {want}")
     res["seconds"] = time.perf_counter() - t0
@@ -1847,6 +2033,26 @@ def print_serve_family(card, res):
               f"{ {k: r['launches'][k] for k in ('paged_attention', 'paged_attention_quant')} }; "
               f"{moe}pages drawn {r.get('pages_drawn', 0)}; wire "
               f"{r['wire_bytes_fwd']:,d} B (exact)", flush=True)
+        if r.get("spec_rounds"):
+            tried = r["spec_accepted"] + r["spec_rejected"]
+            print(f"    spec rounds {r['spec_rounds']} accepted "
+                  f"{r['spec_accepted']} rejected {r['spec_rejected']} rollbacks "
+                  f"{r['spec_rollbacks']} (acceptance "
+                  f"{r['spec_accepted'] / max(tried, 1):.3f}), k served "
+                  f"{r['k_served']}, draft wire {r['wire_bytes_draft']:,d} B "
+                  "(exact)", flush=True)
+        if r.get("evictions") or r.get("withdrawn"):
+            print(f"    evictions {r['evictions']} ({r['evicted_requests']} "
+                  f"requests), withdrawn {r['withdrawn_request']}, {r['ticks']} "
+                  f"ticks, pool whole after each; {r['stream_bursts']} stream "
+                  "bursts joined into every output", flush=True)
+        if "flips" in r:
+            f = r["flips"]
+            print(f"    tokens vs the yardstick: {f['differing']} requests "
+                  f"differ, {len(f['flips'])} near-tie flips {f['flips']}, "
+                  f"{len(f['cascades'])} group cascades", flush=True)
+        if "cache" in r:
+            print(f"    cache vs the yardstick's: {r['cache']}", flush=True)
     for key, r in runs.items():
         if key == "lockstep":
             print(f"time [{card}] serve {arch} lockstep CLI 8 rows x "
@@ -1873,26 +2079,7 @@ def print_serve_family(card, res):
               f"{lt['profile']['idle_share_vs_unprofiled_step']:.3f}, "
               f"{lt['profile']['device_launches']} device kernels", flush=True)
     if "window" in res:
-        w = res["window"]
-        print(f"time [{card}] serve {arch} decode step (8 live slots, float32): "
-              f"{w['decode_step_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} "
-              f"tok/s)", flush=True)
-        if w["profile"] is None:
-            print(f"profile [{card}] {arch} decode window: the profiler saw no "
-                  "device time (not measured)")
-        else:
-            wp = w["profile"]
-            print(f"profile [{card}] {arch} decode window: device "
-                  f"{wp['device_ms_per_step']:.3f} ms/step, idle "
-                  f"{wp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled "
-                  f"step ({wp['idle_share_profiled']:.3f} profiled); paged "
-                  f"kernel {wp['paged_kernel_ms_per_step']:.4f} ms/step; "
-                  f"circconv {wp['circconv_ms_per_step']:.4f} ms/step "
-                  f"({wp['circconv_ms_per_step'] / wp['device_ms_per_step']:.5f} "
-                  f"of device time); {wp['device_ops_per_step']:.0f} device "
-                  "ops/step", flush=True)
-            for r in wp["top"][:8]:
-                print(f"  {r['ms_per_step']:.4f} ms/step  {r['name']}")
+        print_window(card, arch, res["window"], top=8)
     for kind, t in res["layer_times"].items():
         if kind == "encoder_at_cache_init":
             print(f"time [{card}] {arch} encoder over {t['frames']} frames at "
@@ -1905,6 +2092,214 @@ def print_serve_family(card, res):
               f"{t['prefill_chunk_ms_host_included']:.3f} ms host included",
               flush=True)
     print(f"serving {arch}: phase seconds {res['seconds']:.1f}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 15: serving II (speculative decoding, preemption, the legacy mode)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def vanilla_gaps(eng):
+    """Within the block, every ``decode_step`` the engine calls records, on
+    the device, each row's top-2 logit gap over max|logit| with the uid its
+    slot holds and its position.  Yields a dict that holds, on exit,
+    ``gaps`` {uid: {output index: gap}} (the first live record of each
+    decoded token; index = position - prompt length + 1), ``gap_steps``
+    {uid: {output index: the decode step, counted over the run, that
+    produced it}} and ``groups`` {uid: the uids of its codec group (slots
+    i // R alike)}."""
+    from repro_torch.models import lm as lm_lib
+    import torch
+    orig, recs = lm_lib.decode_step, []
+    R = getattr(eng.codec, "R", 1)
+
+    def probed(*a, **kw):
+        out = orig(*a, **kw)
+        top = out[0][:, -1].float().topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]) / out[0][:, -1].abs().amax(-1)
+        recs.append(([s.req.uid if s.req else None for s in eng.slots],
+                     [len(s.req.prompt) if s.req else 0 for s in eng.slots],
+                     torch.stack([a[3].to(torch.float32), gap])))
+        return out
+
+    res = {"gaps": {}, "gap_steps": {}, "groups": {}}
+    lm_lib.decode_step = probed
+    try:
+        yield res
+    finally:
+        lm_lib.decode_step = orig
+        if recs:
+            host = torch.stack([r[2] for r in recs]).cpu().numpy()
+            for step, ((uids, plens, _), (pos, gap)) in enumerate(zip(recs, host)):
+                for i, u in enumerate(uids):
+                    if u is None:
+                        continue
+                    t = int(pos[i]) - plens[i] + 1
+                    if t not in res["gaps"].setdefault(u, {}):
+                        res["gaps"][u][t] = float(gap[i])
+                        res["gap_steps"].setdefault(u, {})[t] = step
+                    res["groups"].setdefault(u, sorted(
+                        {uids[j] for j in range(len(uids)) if j // R == i // R}
+                        - {u, None}))
+
+
+def near_tie_flips(what: str, rec: dict, ref: dict, gapped: dict) -> dict:
+    """``rec``'s greedy tokens against the yardstick ``ref``'s, uid by uid,
+    with the vanilla gaps of ``gapped`` (a run recorded by
+    ``vanilla_gaps``).  A request that differs passes only if, at its first
+    differing output index, the vanilla top-2 gap is under NEAR_TIE (a
+    flip), or a partner in its codec group flipped at an earlier decode
+    step (the group's superposition changed from that step on)."""
+    outs, want = rec["outs"], ref["outs"]
+    gaps, steps = gapped["gaps"], gapped["gap_steps"]
+    firsts = {}
+    for uid, o in outs.items():
+        w = want[uid]
+        check(len(o) == len(w), f"{what}: uid {uid} has {len(o)} tokens, "
+              f"want {len(w)}")
+        d = next((i for i, (a, b) in enumerate(zip(o, w)) if a != b), None)
+        if d is not None:
+            firsts[uid] = d
+    tie = {u: gaps.get(u, {}).get(d, math.inf) < NEAR_TIE
+           for u, d in firsts.items()}
+    flips, cascades = [], []
+    for uid, d in sorted(firsts.items()):
+        g = gaps.get(uid, {}).get(d)
+        if tie[uid]:
+            flips.append({"uid": uid, "index": d, "gap": g})
+            continue
+        at = steps.get(uid, {}).get(d, -1)
+        partner = [p for p in gapped["groups"].get(uid, ())
+                   if tie.get(p) and steps[p][firsts[p]] < at]
+        check(partner, f"{what}: uid {uid} differs from the yardstick at output "
+              f"index {d} where the vanilla top-2 gap is {g} of max|logit| "
+              f"(limit {NEAR_TIE}), and no codec-group partner flipped at an "
+              "earlier step")
+        cascades.append({"uid": uid, "index": d, "after": partner})
+    return {"differing": len(firsts), "flips": flips, "cascades": cascades}
+
+
+def cache_gaps(a, b, rec_a: dict, rec_b: dict) -> dict:
+    """Engine ``b``'s cache against engine ``a``'s after both drained
+    (``rec_a`` recorded by ``vanilla_gaps``): integer leaves equal, float
+    leaves within CACHE_TOL of each leaf's max|value|.  Where the runs'
+    tokens differ, the float leaves are held on the pages whose last
+    admission (the same in both runs) belongs to a codec group in which no
+    request's tokens differ."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    last_a = {pg: u for u, pages in rec_a["page_owners"] for pg in pages}
+    last_b = {pg: u for u, pages in rec_b["page_owners"] for pg in pages}
+    check(last_a == last_b, "spec cache: the runs admitted requests into "
+          "different pages")
+    dirty = {u for u, o in rec_b["outs"].items() if o != rec_a["outs"][u]}
+    dirty |= {p for u in dirty for p in rec_a["groups"].get(u, ())}
+    n_pages = a.pool_accounting()["total"]
+    clean = [pg for pg in range(n_pages) if last_a.get(pg) not in dirty]
+    idx = torch.tensor(clean, device=a.device)
+    worst, exact = 0.0, 0
+    for x, y in zip(tree_leaves(a.cache), tree_leaves(b.cache)):
+        if not x.dtype.is_floating_point:
+            check(torch.equal(x, y), "spec cache: an integer leaf differs")
+            exact += 1
+            continue
+        if dirty:
+            axis = list(x.shape).index(n_pages)
+            x, y = x.index_select(axis, idx), y.index_select(axis, idx)
+        scale = float(x.abs().max()) or 1.0
+        worst = max(worst, float((x - y).abs().max()) / scale)
+    check(worst <= CACHE_TOL, f"spec cache: {worst} of max|value| from the "
+          f"vanilla cache (limit {CACHE_TOL})")
+    return {"float_gap_of_max": worst, "integer_leaves_equal": exact,
+            "pages_compared": len(clean), "pages": n_pages}
+
+
+def preemption_drive(eng, prompts):
+    """Twelve priority-0 requests, then, after the first ``tick()``, four
+    priority-1 ones; after the third tick one running priority-0 request is
+    withdrawn and resubmitted.  The pool is whole after every tick; the
+    stream events, joined per uid, equal each output with no gap."""
+    from repro_torch.serving.engine import Request
+    for u in range(PREEMPT_LOW):
+        eng.submit(Request(uid=u, prompt=prompts[u], max_new_tokens=SERVE_NEW))
+    events, ticks, withdrawn = [], 0, None
+    while eng.tick():
+        ticks += 1
+        acct = eng.pool_accounting()
+        check(acct["free"] + acct["in_use"] == acct["total"]
+              and sum(len(s.pages) for s in eng.slots) == acct["in_use"],
+              f"preemption: pool not whole after tick {ticks}: {acct}")
+        events += eng.pop_stream_events()
+        if ticks == 1:
+            for u in range(PREEMPT_LOW, PREEMPT_LOW + PREEMPT_HIGH):
+                eng.submit(Request(uid=u, prompt=prompts[u],
+                                   max_new_tokens=SERVE_NEW, priority=1))
+        if ticks == 3:
+            victim = next(s.req.uid for s in eng.slots
+                          if s.req is not None and s.req.priority == 0)
+            req = eng.withdraw(victim)
+            withdrawn = {"uid": victim, "emitted": len(req.out)}
+            eng.submit(req)
+        check(ticks < 2000, "preemption: the engine did not drain")
+    events += eng.pop_stream_events()
+    check(eng.pool_accounting()["free"] == PREEMPT_PAGES, "preemption: pages "
+          f"leaked: {eng.pool_accounting()}")
+    done = eng.finished
+    for r in done:
+        joined = []
+        for u, start, toks in events:
+            if u == r.uid:
+                check(start == len(joined), f"preemption: uid {r.uid} stream "
+                      f"gap at {len(joined)} (burst starts at {start})")
+                joined += toks
+        check(joined == r.out, f"preemption: uid {r.uid} streamed {len(joined)} "
+              f"tokens that differ from its output")
+    return done, {"ticks": ticks, "stream_bursts": len(events),
+                  "withdrawn_request": withdrawn,
+                  "evicted_requests": sum(r.evictions > 0 for r in done)}
+
+
+def serving_ii_plan() -> list:
+    """Phase 15's runs (see the module docstring)."""
+    from repro_torch.serving.spec import SpecConfig
+    spec = dict(codec=SPEC_LINK, spec_decode=SpecConfig(k=SPEC_K,
+                                                        draft_head="tied"))
+    copy = dict(codec=SPEC_LINK, spec_decode=SpecConfig(
+        k=SPEC_K, draft_head="copy", adaptive=True))
+
+    def pinned(rec):
+        check(rec["spec_rounds"] > 0
+              and rec["k_served"] == {SPEC_K: rec["spec_rounds"]},
+              f"phase 15a: rounds {rec['spec_rounds']}, k {rec['k_served']}")
+
+    def speculated(rec):
+        check(rec["spec_rounds"] > 0, "phase 15b: no speculative round")
+
+    def preempted(rec):
+        check(rec["evictions"] > 0 and rec["withdrawn"] == 1,
+              f"phase 15c: evictions {rec['evictions']}, withdrawn "
+              f"{rec['withdrawn']}")
+
+    def legacy(rec):
+        check(rec["prefill_chunks"] == 0 and rec["decode_steps"]
+              == SERVE_PROMPT + SERVE_NEW - 1, f"phase 15d: "
+              f"{rec['decode_steps']} legacy steps, {rec['prefill_chunks']} "
+              "chunks")
+    return [ServeRun("vanilla", against="phase4"),
+            ServeRun("spec_tied", over=spec, against="vanilla", cache=True,
+                     timed=True, expect=pinned),
+            ServeRun("spec_copy_adaptive", over=copy, against="vanilla",
+                     expect=speculated),
+            # preemption without the codec: rows independent, so outputs are
+            # a function of the prompt alone
+            ServeRun("vanilla_no_codec", over=dict(codec="none")),
+            ServeRun("preemption", over=dict(codec="none", num_pages=PREEMPT_PAGES,
+                                             preemption=True),
+                     drive=preemption_drive, against="vanilla_no_codec",
+                     expect=preempted),
+            ServeRun("legacy", n_req=LEGACY_REQUESTS,
+                     over=dict(prefill_mode="decode"), against="vanilla",
+                     expect=legacy)]
 
 
 # --------------------------------------------------------------------------
@@ -3137,29 +3532,7 @@ def main() -> int:
               f"{r['requests']}x({SERVE_PROMPT}+{r['max_new']}): "
               f"{r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} generated tok/s, "
               f"mean TTFT {r['mean_ttft_ms']:.1f} ms", flush=True)
-    w = serve["window"]
-    print(f"time [{card}] serve decode step (8 live slots, float32, kernel "
-          f"read): {w['decode_step_ms']:.3f} ms ({w['tokens_per_s_full_batch']:.1f} "
-          f"tok/s)", flush=True)
-    if w["profile"] is None:
-        print(f"profile [{card}] decode window: the profiler saw no device time "
-              "(not measured)")
-    else:
-        wp = w["profile"]
-        print(f"profile [{card}] decode window: device {wp['device_ms_per_step']:.3f} "
-              f"ms/step, idle {wp['idle_share_vs_unprofiled_step']:.3f} of the "
-              f"unprofiled step ({wp['idle_share_profiled']:.3f} profiled); paged "
-              f"kernel {wp['paged_kernel_ms_per_step']:.4f} ms/step "
-              f"({wp['paged_kernel_share']:.4f} of device time; passes "
-              f"{', '.join(f'{k} {v:.4f}' for k, v in wp['paged_pass_ms_per_step'].items())}"
-              f" ms/step overlapping); circconv "
-              f"{wp['circconv_ms_per_step']:.4f} ms/step; "
-              f"{wp['device_ops_per_step']:.0f} device ops/step", flush=True)
-        for r in wp["top"]:
-            print(f"  {r['ms_per_step']:.4f} ms/step  {r['name']}")
-        for r in wp["host_top"]:
-            print(f"  host {r['ms_per_step']:.3f} ms/step x{r['calls_per_step']:.0f}"
-                  f"  {r['name']}")
+    print_window(card, SERVE_ARCH + " kernel read", serve["window"])
 
     free_cuda()
     lm = lm_training(dev, lm_config(), LM_SHAPE, ckpt=True)
@@ -3198,6 +3571,14 @@ def main() -> int:
         lap(f"serving_{arch}")
         print_serve_family(card, serve_states[arch])
 
+    print("phase 15: serving II (speculative decoding, preemption, the "
+          "legacy prefill mode)", flush=True)
+    free_cuda()
+    serve_ii = serve_family(dev, "phase 15", SERVE_ARCH, None,
+                            plan=serving_ii_plan(), refs={"phase4": rk})
+    lap("serving_ii")
+    print_serve_family(card, serve_ii)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -3228,8 +3609,8 @@ def main() -> int:
     cp_keys = (["16x4x2048/float32"]
                + [f"{G}x{R}x{D}/float32" for G, R, D in cp_kernel_shapes() if D == 2048]
                + ["{}x{}x{}/float32".format(*sh) for sh in
-                  FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES
-                  + [(2, 4, 4096), (128, 4, 4096)]])
+                  FAMILY_SERVE_SHAPES + STATE_SERVE_SHAPES + SPEC_SERVE_SHAPES
+                  + [(2, 4, 4096), (128, 4, 4096), (16, 4, 4096)]])
     main_errs = {"bind_superpose": max([errs["bind_superpose"][k] for k in cp_keys]
                                        + [errs["bind_superpose"]["grad 16x4x2048"]]),
                  "unbind": max([errs["unbind"][k] for k in cp_keys]
@@ -3252,7 +3633,7 @@ def main() -> int:
     # the circconv kernels' launches in each main-path run, counted by the
     # run and read just after it (record_launches): the one-pass kernels'
     # in the VGG-16 main run, the control plane's and the serving runs of
-    # phases 13 and 14, the direct ones' in the main run, the four-step
+    # phases 13, 14 and 15, the direct ones' in the main run, the four-step
     # ones' in the six LM training runs (phases 7-12), the mixed-radix
     # one-pass ones' over every run; of these only phase 14's pixtral-12b
     # (D 5120) takes a mixed-radix width, so that sum must be its decode
@@ -3261,9 +3642,8 @@ def main() -> int:
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values()]
-    family_runs = [r for f in serve_families.values() for r in f["runs"].values()]
-    state_runs = [r for f in serve_states.values() for r in f["runs"].values()]
-    serve_runs = family_runs + state_runs
+    serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
+                              serve_ii) for r in f["runs"].values()]
     path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *serve_runs]
     one_pass_runs = [main_run, cp, *serve_runs]
     launches = {name: counted(name, runs) for name, runs in (
@@ -3344,6 +3724,7 @@ def main() -> int:
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
+        "serving_ii": serve_ii,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

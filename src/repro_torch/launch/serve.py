@@ -23,8 +23,14 @@ unless ``--device cpu`` is given; weights are random, drawn from
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-large-v2 --reduced --device cpu --codec "c3sl:R=4"
 
-Not ported yet: the front door, the speculative-decoding flags and
-``--sanitize`` (ROADMAP.md slices 5, 6 and 7).
+    # speculative decoding (--engine, --greedy): prints a "speculative:
+    # k=... acceptance ... wire B/token" line; a link spec's "draft:"
+    # segment turns it on too
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+        --reduced --engine --device cpu --greedy --draft-k 4 --draft-head copy
+
+Not ported yet: the front door and ``--sanitize`` (ROADMAP.md slices 6
+and 7).
 """
 from __future__ import annotations
 
@@ -44,11 +50,14 @@ def _serving_codec(spec: str, D: int, R: int, batch: int):
     """Build the serving-side codec from a spec.  A per-direction link spec
     (``... >> bwd:...``) keeps the LINK: the engine serves the forward
     channel (no gradient crosses the cut at inference, so the backward
-    direction is accounted as 0)."""
+    direction is accounted as 0), and a ``draft:`` segment becomes the
+    speculative feedback channel (it turns speculative decoding on)."""
     if transport.is_link_spec(spec):
         link = transport.build_link(spec, D=D, R=R).with_max_R(batch)
         print(f"[serve] link spec {link.spec()!r}: forward channel serves "
-              f"(no gradient crosses the cut at inference)", flush=True)
+              f"(no gradient crosses the cut at inference)"
+              + ("; draft channel feeds speculative decode"
+                 if link.draft is not None else ""), flush=True)
         return link
     return codecs.clamp_R(codecs.build(spec, D=D, R=R), batch)
 
@@ -67,12 +76,43 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _spec_config(args):
+    """SpecConfig from the --draft-* flags; None when none was given (a
+    --codec link spec with a draft: segment still turns speculation on in
+    the engine, with the defaults)."""
+    from repro_torch.serving.spec import SpecConfig
+    if (args.draft_k is None and args.draft_spec is None
+            and args.draft_head is None and not args.draft_adaptive):
+        return None
+    kw = {}
+    if args.draft_k is not None:
+        kw["k"] = args.draft_k
+    if args.draft_spec is not None and args.draft_spec != "none":
+        kw["draft"] = args.draft_spec
+    if args.draft_head is not None:
+        kw["draft_head"] = args.draft_head
+    if args.draft_adaptive:
+        kw["adaptive"] = True
+    return SpecConfig(**kw)
+
+
+def _prompts(args, vocab: int) -> list:
+    """The engine run's random prompts, from ``--seed`` + 1."""
+    rng = np.random.RandomState(args.seed + 1)
+    return rng.randint(0, vocab, (args.requests, args.prompt_len)).tolist()
+
+
 def _run_engine(cfg, params, args):
     """Continuous batching: chunked prefill + device-resident slot state."""
     from repro_torch.serving.engine import BatchedEngine, Request
     codec = None
     if args.codec != "none":
         codec = _serving_codec(args.codec, cfg.d_model, args.R, args.batch)
+    spec_decode = _spec_config(args)
+    if spec_decode is not None and not args.greedy:
+        raise SystemExit("--draft-* speculative decoding needs --greedy "
+                         "(greedy verification is the bit-identity "
+                         "guarantee)")
     eng = BatchedEngine(params, cfg, num_slots=args.batch,
                         max_len=args.cache_len, codec=codec,
                         codec_params=(codec.init(torch.Generator().manual_seed(7),
@@ -83,11 +123,10 @@ def _run_engine(cfg, params, args):
                         chunk_size=args.chunk_size, sync_every=args.sync_every,
                         kv_layout=args.kv_layout, page_size=args.page_size,
                         num_pages=args.num_pages, interleave=args.interleave,
-                        kv_read=args.kv_read)
+                        preemption=args.preemption, kv_read=args.kv_read,
+                        spec_decode=spec_decode)
     _pin(eng.codec, args.pin_R)
-    rng = np.random.RandomState(args.seed + 1)
-    prompts = rng.randint(0, cfg.vocab_size, (args.requests, args.prompt_len))
-    for u, p in enumerate(prompts.tolist()):
+    for u, p in enumerate(_prompts(args, cfg.vocab_size)):
         eng.submit(Request(uid=u, prompt=p, max_new_tokens=args.max_new))
     t0 = time.time()
     done = eng.run()
@@ -110,6 +149,19 @@ def _run_engine(cfg, params, args):
             hist = dict(sorted(eng.r_served.items()))
             line += f"; served R schedule {hist} (decode steps + chunks)"
         print(line)
+    if eng.spec_cfg is not None:
+        s = eng.stats
+        tried = s["spec_accepted"] + s["spec_rejected"]
+        wpt = eng.wire_per_token()
+        print(f"speculative: k={eng._k_ctl.current_k} "
+              f"head={eng.spec_cfg.draft_head} "
+              f"draft={eng.draft_codec.spec() if eng.draft_codec else 'raw'} "
+              f"rounds={s['spec_rounds']} accepted={s['spec_accepted']} "
+              f"rejected={s['spec_rejected']} rollbacks={s['spec_rollbacks']} "
+              f"(acceptance {s['spec_accepted'] / max(tried, 1):.2f}); "
+              f"wire {wpt['wire_bytes_per_token']:.1f} B/token "
+              f"(fwd {wpt['wire_bytes_fwd']:,d} + "
+              f"draft {wpt['wire_bytes_draft']:,d} B)")
     if eng.paged is not None:
         print(f"paged pool: {eng.paged.num_pages} pages x "
               f"{eng.paged.page_size} positions "
@@ -226,8 +278,7 @@ def main(argv=None):
     ap.add_argument("--sync-every", type=int, default=8)
     ap.add_argument("--prefill-mode", choices=["chunked", "decode"],
                     default="chunked",
-                    help="'decode' = the legacy prefill-as-decode baseline "
-                         "(not ported yet)")
+                    help="'decode' = the legacy prefill-as-decode baseline")
     ap.add_argument("--kv-layout", choices=["contiguous", "paged"],
                     default="contiguous",
                     help="'paged' = shared page pool + per-slot page tables")
@@ -242,6 +293,25 @@ def main(argv=None):
     ap.add_argument("--interleave", type=int, default=0,
                     help="decode steps interleaved after each prefill chunk "
                          "(0 = prefill admitted prompts to completion)")
+    ap.add_argument("--draft-k", type=int, default=None,
+                    help="speculative decoding: positions per verify round "
+                         "(1 input + k-1 drafts; --engine, needs --greedy)")
+    ap.add_argument("--draft-spec", default=None,
+                    help="draft feedback channel codec spec, e.g. "
+                         "'c3sl:R=8|int8' ('none' = raw float32 feedback); "
+                         "overrides a --codec link spec's 'draft:' segment")
+    ap.add_argument("--draft-head", choices=["tied", "copy"], default=None,
+                    help="client-side draft proposer: 'tied' (tied-embedding "
+                         "head over the fed-back cut feature) or 'copy' "
+                         "(repeat last token, zero feedback bytes)")
+    ap.add_argument("--draft-adaptive", action="store_true",
+                    help="adapt k from the measured acceptance rate "
+                         "(EMA deadband over the {1,2,4,8} ladder)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="evict lower-priority slots (pages freed, request "
+                         "re-queued for re-prefill) instead of FIFO-blocking "
+                         "when the queue head cannot be admitted (chunked "
+                         "prefill only)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

@@ -345,14 +345,16 @@ def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
 
 def apply_gqa_prefill(p, x, cache, pos, valid, *, num_heads, num_kv_heads,
                       head_dim, rotary_dim, rope_theta=10000.0,
-                      sliding_window=None, pages=None, length=None):
+                      sliding_window=None, pages=None, length=None,
+                      write=True):
     """Chunked prefill: ingest C tokens per row in one call.
 
     x (B,C,D); cache as in :func:`apply_gqa_decode`; pos (B,) per-row start
     positions; valid (B,C) marks real tokens (False: no cache write, no
     attention contribution).  Attention runs over [pre-chunk cache ; chunk
     keys] — never the post-write cache — so ring buffers stay correct.
-    Returns (y (B,C,D), cache) with the chunk written in place.
+    Returns (y (B,C,D), cache) with the chunk written in place, or, with
+    ``write=False`` (the speculative verify), the cache untouched.
     """
     B, C, D = x.shape
     paged = pages is not None
@@ -387,6 +389,8 @@ def apply_gqa_prefill(p, x, cache, pos, valid, *, num_heads, num_kv_heads,
     y = matmul(_sdpa(q, torch.cat([ck, k], dim=1), torch.cat([cv, v], dim=1),
                      mask), p["w_o"])
 
+    if not write:
+        return y, cache
     slot = qpos % T if sliding_window is not None else qpos
     if quant:
         k_q, k_s = _quantize_kv(k)
@@ -501,11 +505,12 @@ def apply_mla_decode(p, x, cache, pos, *, num_heads, kv_lora_rank, qk_nope_dim,
 
 def apply_mla_prefill(p, x, cache, pos, valid, *, num_heads, kv_lora_rank,
                       qk_nope_dim, qk_rope_dim, v_head_dim, rope_theta=10000.0,
-                      pages=None, length=None):
+                      pages=None, length=None, write=True):
     """Chunked absorbed-matrix prefill: x (B,C,D); pos (B,) start
     positions; valid (B,C) as in :func:`apply_gqa_prefill`.  The scores run
     over [the cache before the chunk ; the chunk's latents].  Returns
-    (y (B,C,D), cache) with the chunk written in place."""
+    (y (B,C,D), cache) with the chunk written in place (untouched with
+    ``write=False``)."""
     B, C, _ = x.shape
     H = num_heads
     T = length if pages is not None else cache["c_kv"].shape[1]
@@ -532,6 +537,8 @@ def apply_mla_prefill(p, x, cache, pos, valid, *, num_heads, kv_lora_rank,
     w_uv = p["w_uv"].reshape(kv_lora_rank, H, v_head_dim)
     out = torch.einsum("bchl,lhv->bchv", *promote(o_c, w_uv))
     out = out.reshape(B, C, H * v_head_dim)
+    if not write:
+        return matmul(out, p["w_o"]), cache
     new = {"c_kv": c_kv_new, "k_pe": k_pe_new}
     return matmul(out, p["w_o"]), _write_chunk(cache, new, qpos, valid, T,
                                                pages=pages)

@@ -37,8 +37,9 @@ an encoder-decoder model (its encoder runs once, in ``init_decode_cache``,
 over the ``frontend_emb`` frames, into ``cache["memory"]``, which every
 stack call reads) and a VLM, which is served text-only: the reference's
 serving embeds tokens only, text positions from 0, and never reads the
-patch embeddings.  Speculative ``verify_chunk`` comes with slice 5
-(serving II).
+patch embeddings.  The speculative ``verify_chunk`` runs the chunked
+prefill in its no-write mode: per-position logits, and the cache exactly as
+it was.
 """
 from __future__ import annotations
 
@@ -58,14 +59,6 @@ from repro_torch.transport.link import roundtrip
 
 
 ENC_PATTERN = (("attn", "mlp"),)
-
-
-def check_servable(cfg: ModelConfig):
-    """Raise ``ValueError`` for a sublayer kind the serving entry points do
-    not know (every registered kind is served)."""
-    for layer in cfg.block_pattern:
-        for kind in layer:
-            stack_lib.check_servable_kind(kind)
 
 
 def _generator(rng, device) -> torch.Generator:
@@ -236,7 +229,6 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
     ``frontend_emb`` (B, frontend_seq, frontend_dim), which it needs; any
     other model ignores ``frontend_emb``.  ``device`` defaults to the
     params' device."""
-    check_servable(cfg)
     if cfg.is_encdec and frontend_emb is None:
         raise ValueError(
             f"{cfg.name} is an encoder-decoder model: init_decode_cache needs "
@@ -278,7 +270,6 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     through the CUDA paged-attention kernel; the first-dense superblock
     stays on the gather read, as in the reference.
     """
-    check_servable(cfg)
     h = params["embed"][tokens.long()]
     kw = dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
               pages_swa=cache.get("pages_swa"), live=live)
@@ -317,22 +308,26 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def chunk_forward(params, cache, tokens, pos, cfg: ModelConfig, *,
-                  codec=None, codec_params=None, valid=None, paged=None):
+                  codec=None, codec_params=None, valid=None, paged=None,
+                  write=True):
     """C positions per row in one call: the write path under chunked
-    prefill.  tokens (B,C) int; pos (B,) per-row start positions; valid
-    (B,C) marks real tokens (False: no cache write).  Returns
-    ``(h, cache, cut_seq)``: the PRE-NORM final hidden states (B,C,d), the
-    cache written in place, and the (B,C,d) cut-layer features as they
-    entered the codec (None without one).  With a codec the features are
-    grouped PER POSITION across slots (the ``sequence_group_encode`` layout
-    (C,B,d)); non-valid positions contribute exact zeros."""
-    check_servable(cfg)
+    prefill and the speculative commit.  tokens (B,C) int; pos (B,) per-row
+    start positions; valid (B,C) marks real tokens (False: no cache write).
+    Returns ``(h, cache, cut_seq)``: the PRE-NORM final hidden states
+    (B,C,d), the cache written in place, and the (B,C,d) cut-layer features
+    as they entered the codec (None without one).  With a codec the
+    features are grouped PER POSITION across slots (the
+    ``sequence_group_encode`` layout (C,B,d)); non-valid positions
+    contribute exact zeros.  ``write=False`` (the speculative verify)
+    writes nothing into the cache, neither positions nor recurrent state;
+    every read is the same, since attention already reads the pre-chunk
+    cache and the chunk's own keys."""
     B, C = tokens.shape
     if valid is None:
         valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
     h = params["embed"][tokens.long()]
     kw = dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
-              pages_swa=cache.get("pages_swa"))
+              pages_swa=cache.get("pages_swa"), write=write)
     if cfg.first_dense_layers:
         h, _ = stack_lib.apply_superblock_prefill(params["first"], cache["first"],
                                                   cfg, h, pos, valid, **kw)
@@ -372,3 +367,30 @@ def prefill_chunk(params, cache, tokens, pos, cfg: ModelConfig, *,
     h_last = h[torch.arange(B, device=h.device), last]            # (B,d)
     h_last = _apply_norm(cfg, params["final_norm"], h_last)
     return matmul(h_last, params["head"]), cache
+
+
+def verify_chunk(params, cache, tokens, pos, cfg: ModelConfig, *,
+                 codec=None, codec_params=None, valid=None, paged=None):
+    """Speculative VERIFY: a k-position forward with per-position logits
+    that writes nothing into the cache.
+
+    tokens (B,k): each row's last verified token followed by its k-1 draft
+    proposals; ``valid`` marks live rows (all k positions).  Returns
+    ``(logits (B,k,V), feat (B,k,d))``: ``feat`` is the cut-layer feature
+    sequence as the codec encoded it or, without a codec, the pre-norm
+    final hidden states; its position-(e-1) row is the draft head's next
+    feedback feature.
+
+    The reference discards the cache its verify writes; the port writes
+    its caches in place, so the verify runs :func:`chunk_forward` with
+    ``write=False``: no KV position (a ring-SWA write at p + j would
+    overwrite p + j - W, still in the window; a paged write past the
+    slot's reservation would land in another slot's page), no recurrent
+    state advanced k positions.  The commit re-ingests the accepted prefix
+    through the write path, so rollback is position truncation."""
+    h, _, cut_seq = chunk_forward(params, cache, tokens, pos, cfg, codec=codec,
+                                  codec_params=codec_params, valid=valid,
+                                  paged=paged, write=False)
+    feat = cut_seq if codec is not None else h
+    hn = _apply_norm(cfg, params["final_norm"], h)
+    return matmul(hn, params["head"]), feat

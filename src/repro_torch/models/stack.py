@@ -14,12 +14,17 @@ reference's ``jax.checkpoint`` of the scan body) recomputes each
 superblock in the backward through ``torch.utils.checkpoint``: it changes
 memory, not numbers.
 
-Every sublayer kind trains and serves (``TRAIN_KINDS`` = ``SERVE_KINDS``:
-attn, mla, mlp, moe, mamba, rwkv_tm, rwkv_cm, cross).  Serving keeps a
+Every sublayer kind trains and serves (attn, mla, mlp, moe, mamba,
+rwkv_tm, rwkv_cm, cross); ``ModelConfig`` rejects any other kind, and each
+dispatch ends in ``raise ValueError(kind)``, as the reference's.  Serving
+keeps a
 decode cache per sublayer: attn and mla cache positions (paged or
 contiguous), mamba and rwkv keep an O(1) per-slot state that is the same on
 both layouts, and mlp, moe and cross keep nothing (cross re-reads the
-encoder's memory at every call, as the reference does).  moe serves at
+encoder's memory at every call, as the reference does).  The chunked
+prefill has a no-write mode (``write=False``), the speculative verify's:
+attention reads the pre-chunk cache and the chunk's own keys as always, and
+nothing is written, neither a cache position nor a recurrent state.  moe serves at
 ``capacity_factor = num_experts``, so serving never drops a token copy.
 A recurrent kind's chunked prefill runs the one-token decode step position
 by position, committing state only where ``valid``, as the reference's
@@ -40,21 +45,14 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import SUBLAYER_KINDS, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
 
-TRAIN_KINDS = SERVE_KINDS = SUBLAYER_KINDS
 RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
-
-
-def check_servable_kind(kind: str):
-    if kind not in SERVE_KINDS:
-        raise ValueError(f"unknown sublayer kind {kind!r}: the port serves "
-                         f"{SERVE_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +138,6 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int, length: int,
     instead of per-slot (B, T, ...) strips; an mla pool is always the
     full-length one (no ring) and never quantized.  The recurrent kinds'
     per-slot state is the same on both layouts."""
-    check_servable_kind(kind)
     if kind == "mamba":
         return mamba_lib.init_mamba_state(batch, cfg.d_inner, d_state=cfg.d_state,
                                           d_conv=cfg.d_conv, dtype=dtype,
@@ -353,7 +350,6 @@ def _commit(cache, state):
 def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
                           memory=None, paged=None, pages=None, pages_swa=None,
                           live=None, kv_read="gather"):
-    check_servable_kind(kind)
     x = _apply_norm(cfg, p["norm"], h)
     if kind in ("mlp", "moe"):
         return _serve_ffn(kind, p, cfg, x), cache
@@ -373,13 +369,15 @@ def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
         return attn_lib.apply_mla_decode(
             p, x, cache, pos, live=live,
             **_mla_args(cfg), **_paged_args(kind, cfg, paged, pages, pages_swa))
-    return attn_lib.apply_gqa_decode(
-        p, x, cache, pos, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
-        rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta,
-        sliding_window=cfg.sliding_window, live=live,
-        kv_read=kv_read if paged is not None else "gather",
-        **_paged_args(kind, cfg, paged, pages, pages_swa))
+    if kind == "attn":
+        return attn_lib.apply_gqa_decode(
+            p, x, cache, pos, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+            rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta,
+            sliding_window=cfg.sliding_window, live=live,
+            kv_read=kv_read if paged is not None else "gather",
+            **_paged_args(kind, cfg, paged, pages, pages_swa))
+    raise ValueError(kind)
 
 
 def apply_superblock_decode(p_sb, cache_sb, cfg: ModelConfig, h, pos, *,
@@ -431,72 +429,79 @@ def apply_stack_decode(stacked, cache, cfg: ModelConfig, h, pos, *,
 # chunked prefill (C tokens per row, per-row start positions, ragged tails)
 # ---------------------------------------------------------------------------
 
-def _prefill_stateful(kind: str, p, cache, cfg: ModelConfig, x, valid):
+def _prefill_stateful(kind: str, p, cache, cfg: ModelConfig, x, valid,
+                      write=True):
     """A recurrent sublayer over a chunk, as the reference's scan over its C
     positions: each position reuses the one-token decode step and commits
     state only where ``valid`` (padded positions leave the state and
     token-shift inputs untouched).  Returns (y (B,C,d), cache) with the
-    final state copied into the cache in place."""
+    final state copied into the cache in place; ``write=False`` leaves the
+    cache's state as it was."""
     state = dict(cache)
     ys = []
     for j in range(x.shape[1]):
         y, new = _recurrent_step(kind, p, state, cfg, x[:, j:j + 1])
         state = {k: _where_rows(valid[:, j], n, state[k]) for k, n in new.items()}
         ys.append(y[:, 0])
-    _commit(cache, state)
+    if write:
+        _commit(cache, state)
     return torch.stack(ys, dim=1), cache
 
 
 def apply_sublayer_prefill(kind: str, p, cache, cfg: ModelConfig, h, pos,
                            valid, *, memory=None, paged=None, pages=None,
-                           pages_swa=None):
+                           pages_swa=None, write=True):
     """Chunked-prefill sublayer step.  h (B,C,d); pos (B,) start positions;
-    valid (B,C) marks real tokens.  Returns (residual update, cache)."""
-    check_servable_kind(kind)
+    valid (B,C) marks real tokens.  Returns (residual update, cache);
+    ``write=False`` writes nothing into the cache."""
     x = _apply_norm(cfg, p["norm"], h)
     if kind in ("mlp", "moe"):
         return _serve_ffn(kind, p, cfg, x), cache
     if kind == "cross":
         return _cross(p, cfg, x, memory), cache
     if kind in RECURRENT_KINDS:
-        return _prefill_stateful(kind, p, cache, cfg, x, valid)
+        return _prefill_stateful(kind, p, cache, cfg, x, valid, write)
     if kind == "mla":
         return attn_lib.apply_mla_prefill(
-            p, x, cache, pos, valid,
+            p, x, cache, pos, valid, write=write,
             **_mla_args(cfg), **_paged_args(kind, cfg, paged, pages, pages_swa))
-    return attn_lib.apply_gqa_prefill(
-        p, x, cache, pos, valid, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
-        rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta,
-        sliding_window=cfg.sliding_window,
-        **_paged_args(kind, cfg, paged, pages, pages_swa))
+    if kind == "attn":
+        return attn_lib.apply_gqa_prefill(
+            p, x, cache, pos, valid, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+            rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta,
+            sliding_window=cfg.sliding_window, write=write,
+            **_paged_args(kind, cfg, paged, pages, pages_swa))
+    raise ValueError(kind)
 
 
 def apply_superblock_prefill(p_sb, cache_sb, cfg: ModelConfig, h, pos, valid, *,
                              pattern=None, memory=None, paged=None, pages=None,
-                             pages_swa=None):
+                             pages_swa=None, write=True):
     pattern = pattern or cfg.block_pattern
     for li, layer in enumerate(pattern):
         for si, kind in enumerate(layer):
             key = f"l{li}_{si}_{kind}"
             y, _ = apply_sublayer_prefill(
                 kind, p_sb[key], cache_sb[key], cfg, h, pos, valid,
-                memory=memory, paged=paged, pages=pages, pages_swa=pages_swa)
+                memory=memory, paged=paged, pages=pages, pages_swa=pages_swa,
+                write=write)
             h = h + y
     return h, cache_sb
 
 
 def apply_stack_prefill(stacked, cache, cfg: ModelConfig, h, pos, valid, *,
                         memory=None, paged=None, pages=None, pages_swa=None,
-                        start: int = 0, stop: int | None = None):
+                        start: int = 0, stop: int | None = None, write=True):
     """Chunked prefill through superblocks [start, stop); cache leaves have
-    the leading superblock dim and are written in place.  Returns
-    (h (B,C,d), cache)."""
+    the leading superblock dim and are written in place (not at all with
+    ``write=False``).  Returns (h (B,C,d), cache)."""
     stop = cfg.num_superblocks if stop is None else stop
     for i in range(start, stop):
         h_out, _ = apply_superblock_prefill(
             _index(stacked, i), _index(cache, i), cfg, h, pos, valid,
-            memory=memory, paged=paged, pages=pages, pages_swa=pages_swa)
+            memory=memory, paged=paged, pages=pages, pages_swa=pages_swa,
+            write=write)
         _check_carry(h, h_out, i)
         h = h_out
     return h, cache

@@ -1,9 +1,9 @@
-"""Continuous-batching serving engine (vLLM-lite) on its chunked fast path.
+"""Continuous-batching serving engine (vLLM-lite).
 
-Port of ``repro/serving/engine.py``'s ``BatchedEngine`` with chunked
-prefill.  A fixed pool of ``num_slots`` decode slots shares one stacked KV
-cache; every slot advances at its OWN position, and a finished slot is
-recycled for the next queued request mid-flight.
+Port of ``repro/serving/engine.py``'s ``BatchedEngine``.  A fixed pool of
+``num_slots`` decode slots shares one stacked KV cache; every slot advances
+at its OWN position, and a finished slot is recycled for the next queued
+request mid-flight.
 
 * Chunked prefill: prompts are ingested ``chunk_size`` tokens per call
   through ``lm.prefill_chunk`` (ragged tails padded under a length mask).
@@ -58,10 +58,33 @@ reference's engine fails there too (it builds its cache without
 (``init_decode_cache(..., frontend_emb=)`` and ``decode_step``, as
 ``launch/serve.py`` without ``--engine`` does).
 
-Not ported yet, and raising ``NotImplementedError`` here: the legacy
-``prefill_mode="decode"``, ``preemption``, ``spec_decode`` (and a link's
-``draft:`` channel, which enables it), ``withdraw`` and stream events
-(ROADMAP.md slice 5, serving II); the sanitizer (slice 7, tooling).
+Speculative decoding (``spec_decode``, a ``SpecConfig`` or True; a link
+spec's ``draft:`` segment turns it on, see ``repro_torch.serving.spec``):
+a speculative window is a Python loop of verify/commit rounds, each
+advancing every live slot by 1..k tokens.  The round proposes k-1 drafts
+from the draft channel's feedback, verifies them with ``lm.verify_chunk``
+(the chunked prefill in its no-write mode: the reference discards the
+cache its verify writes, the port writes caches in place, so its verify
+writes nothing), accepts the longest matching prefix group-lockstep under
+the codec, and commits it through ``lm.chunk_forward``'s masked write
+path.  A round reads one flag on the host (any slot live) and the window
+its counters once, at its end.  Greedy outputs equal vanilla decode's; a
+verify round ships nothing on the forward channel and its feedback plus
+draft ids on the draft channel (``wire_bytes_draft``).  A starved page
+pool drops to vanilla windows.  Verify and commit read through the
+chunked (gather) read, also under ``kv_read="kernel"``, which warns so.
+
+Slot preemption (``preemption=True``, chunked prefill): a blocked
+higher-priority head evicts lower-priority slots, least progress first;
+an evicted request re-prefills its prompt plus the tokens it emitted and
+resumes with equal greedy output.  ``withdraw`` pulls a request out the
+same way; ``pop_stream_events`` drains the (uid, start, tokens) bursts the
+boundaries collect (one stream watermark serves retire, evict and
+withdraw).  The legacy ``prefill_mode="decode"`` is a per-token host loop
+over ``decode_step`` (``step()``), slow by design: the baseline.
+
+Not ported yet, and raising ``NotImplementedError`` here: the sanitizer
+(``attach_sanitizer``, ROADMAP.md slice 7, tooling).
 """
 from __future__ import annotations
 
@@ -80,9 +103,9 @@ from repro_torch.interop import tree_leaves
 from repro_torch.kernels import paged_attention
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.paging import PagedLayout
+from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.paging import PageAllocator
-
-_SERVING_II = "ROADMAP.md slice 5 (serving II)"
+from repro_torch.serving.spec import AdaptiveK, SpecConfig
 
 
 def _not_ported(what: str, slice_name: str):
@@ -106,17 +129,28 @@ class Request:
     uid: int
     prompt: list            # token ids
     max_new_tokens: int = 16
+    priority: int = 0       # higher preempts lower (engine preemption=True)
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0   # set by submit()
     t_first: float | None = None  # first token observed (TTFT = t_first - t_submit)
+    evictions: int = 0      # times this request was preempted or withdrawn
+    # speculative counters (0 without spec_decode): tokens emitted through
+    # verify rounds, draft positions rejected, rounds that truncated
+    accepted: int = 0
+    rejected: int = 0
+    rollbacks: int = 0
 
 
 @dataclasses.dataclass
 class _Slot:
     req: Request | None = None
-    ingested: int = 0        # tokens of the feed already ingested
-    feed: list = dataclasses.field(default_factory=list)   # what to prefill
+    pos: int = 0             # next cache position to write (legacy mode)
+    in_prompt: int = 0       # tokens of the feed already ingested (legacy)
+    ingested: int = 0        # tokens of the feed already ingested (chunked)
+    # what this residency ingests before decoding: the prompt plus, after
+    # an eviction or a withdraw, the tokens already emitted
+    feed: list = dataclasses.field(default_factory=list)
     pages: list = dataclasses.field(default_factory=list)  # owned linear pages
 
 
@@ -139,33 +173,39 @@ class BatchedEngine:
         # the engine compresses with the link's FORWARD channel and accounts
         # the backward direction as 0.  Specs are built against the decode
         # cut layer (D = d_model) and clamped to the slot count; "none" is
-        # no codec.
+        # no codec.  A link spec's "draft:" segment is the speculative
+        # feedback channel's codec, and turns speculation on.
         # A link OBJECT (like a codec object) leaves clamping and init to
         # its caller; caller-supplied params follow the LINK's tree.
         self.link_spec = None
-        from_spec = isinstance(codec, str)
-        if from_spec and transport.is_link_spec(codec):
-            codec = transport.build_link(codec, D=cfg.d_model)
-        if isinstance(codec, transport.SplitLink):
-            self._refuse_draft(codec)
-            self.link_spec = codec.spec()
-            codec, codec_params = codec.serving_codec(codec_params)
-        if from_spec:
-            if isinstance(codec, str) and codec == "none":
+        draft_codec = draft_params = None
+        if isinstance(codec, str):
+            if codec == "none":
                 codec = codec_params = None
             else:
+                if transport.is_link_spec(codec):
+                    link = transport.build_link(codec, D=cfg.d_model)
+                    self.link_spec = link.spec()
+                    if link.draft is not None:
+                        draft_codec = codecs_lib.clamp_R(link.draft.codec,
+                                                         num_slots)
+                    codec, codec_params = link.serving_codec(codec_params)
                 codec = codecs_lib.clamp_R(
                     codecs_lib.build(codec, D=cfg.d_model)
                     if isinstance(codec, str) else codec, num_slots)
                 if codec_params is None:
                     codec_params = codec.init(torch.Generator().manual_seed(seed),
                                               device=self.device)
+        elif isinstance(codec, transport.SplitLink):
+            self.link_spec = codec.spec()
+            if codec.draft is not None:
+                draft_codec = codec.draft.codec
+                if codec_params is not None:
+                    draft_params = codec.draft_params(codec_params)
+            codec, codec_params = codec.serving_codec(codec_params)
         if prefill_mode not in ("chunked", "decode"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r} "
                              "(expected 'chunked' | 'decode')")
-        if prefill_mode == "decode":
-            raise _not_ported("prefill_mode='decode' (the legacy path)",
-                              _SERVING_II)
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
                              "(expected 'contiguous' | 'paged')")
@@ -177,10 +217,52 @@ class BatchedEngine:
                 "kv_read='kernel' requires kv_layout='paged': the CUDA "
                 "paged-attention kernel is a page-table walk, and a "
                 "contiguous cache has no table to walk")
-        if preemption:
-            raise _not_ported("preemption", _SERVING_II)
-        if spec_decode:
-            raise _not_ported("spec_decode (speculative decoding)", _SERVING_II)
+        if preemption and prefill_mode != "chunked":
+            raise ValueError("preemption requires prefill_mode='chunked' "
+                             "(eviction re-queues the request for chunked "
+                             "re-prefill of its generated context)")
+        # ---- speculative decoding (repro_torch.serving.spec) -------------
+        if spec_decode is True:
+            spec_decode = SpecConfig()
+        if not spec_decode:
+            spec_decode = SpecConfig() if draft_codec is not None else None
+        self.spec_cfg: SpecConfig | None = spec_decode
+        if spec_decode is not None:
+            if prefill_mode != "chunked":
+                raise ValueError(
+                    "spec_decode requires prefill_mode='chunked': the verify "
+                    "round is a k-position chunk dispatch")
+            if not greedy:
+                raise ValueError(
+                    "spec_decode requires greedy=True: greedy verification "
+                    "is what makes speculative output bit-identical to "
+                    "vanilla decode (sampled verification would need the "
+                    "rejection-sampling correction, which this engine does "
+                    "not implement)")
+            if cfg.sliding_window and spec_decode.ladder[-1] > cfg.sliding_window:
+                raise ValueError(
+                    f"spec_decode ladder max k={spec_decode.ladder[-1]} "
+                    f"exceeds sliding_window={cfg.sliding_window}: a verify "
+                    f"round must not write any ring slot twice; use a "
+                    f"smaller ladder")
+            if spec_decode.draft is not None:
+                # SpecConfig's draft spec overrides a link's draft: segment
+                draft_codec = codecs_lib.clamp_R(
+                    codecs_lib.build(spec_decode.draft, D=cfg.d_model),
+                    num_slots)
+                draft_params = None
+            if draft_codec is not None and draft_params is None:
+                # a key of its own: the draft channel's superposition basis
+                # must not collide with the forward channel's
+                draft_params = draft_codec.init(
+                    torch.Generator().manual_seed(seed + 1), device=self.device)
+            self._k_ctl = AdaptiveK(spec_decode)
+        else:
+            draft_codec = draft_params = None
+            self._k_ctl = None
+        self.draft_codec = draft_codec
+        self.draft_params = draft_params
+        self.preemption = preemption
         kinds = {k for layer in cfg.block_pattern for k in layer}
         if kv_read == "kernel":
             if "attn" not in kinds:
@@ -196,12 +278,15 @@ class BatchedEngine:
                 fallbacks.append("MLA latent reads")
             if cfg.first_dense_layers:
                 fallbacks.append("the unstacked first-dense superblock")
-            fallbacks.append("chunked-prefill reads")
-            warnings.warn(
-                "kv_read='kernel': " + ", ".join(fallbacks) + " stay on the "
-                "gather read path (kernel tier covers stacked GQA decode "
-                "only)", stacklevel=2)
-        lm_lib.check_servable(cfg)
+            if prefill_mode == "chunked":
+                fallbacks.append("chunked-prefill reads")
+            if self.spec_cfg is not None:
+                fallbacks.append("speculative verify/commit reads")
+            if fallbacks:
+                warnings.warn(
+                    "kv_read='kernel': " + ", ".join(fallbacks) + " stay on "
+                    "the gather read path (kernel tier covers stacked GQA "
+                    "decode only)", stacklevel=2)
         if cfg.is_encdec:
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder model: the engine has no "
@@ -270,10 +355,14 @@ class BatchedEngine:
         self.slots = [_Slot() for _ in range(num_slots)]
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
+        self._tokens_decoded = 0
         self._dirty = True            # force the first boundary to run
-        # the reference's keys, so stats line up with it; serving ships the
-        # forward direction only and the speculative counters stay 0 until
-        # spec_decode is ported
+        # the reference's keys, so stats line up with it.  Serving ships the
+        # forward direction only (wire_bytes_bwd stays 0); a verify round
+        # ships nothing forward, and its feedback payload plus the draft
+        # token ids go to wire_bytes_draft.  spec_accepted counts tokens
+        # emitted through verify rounds, spec_rejected the draft positions
+        # thrown away, spec_rollbacks the rounds that truncated.
         self.stats = {"dispatches": 0, "decode_steps": 0, "prefill_chunks": 0,
                       "payload_wire_bytes": 0, "wire_bytes_fwd": 0,
                       "wire_bytes_bwd": 0, "wire_bytes_draft": 0,
@@ -290,6 +379,14 @@ class BatchedEngine:
         # one count per EXECUTED decode step plus one per prefill chunk, so
         # total() == decode_steps + prefill_chunks
         self.r_served: Counter[int] = Counter()
+        # the served k schedule under spec_decode, as {k: verify rounds}
+        # (k=1 windows are vanilla decode, counted by decode_steps only)
+        self.k_served: Counter[int] = Counter()
+        # streamed-token harvest: (uid, start, [tokens]) bursts collected at
+        # the host copies the engine already makes (boundaries, early
+        # retires), drained by pop_stream_events()
+        self.stream_events: list[tuple[int, int, list[int]]] = []
+        self._stream_mark: dict[int, int] = {}
         self._adaptive = isinstance(self.codec, codecs_lib.AdaptiveC3SL)
         self.state = self._init_state()
         self._window_len = max(self.sync_every, self.interleave, 1)
@@ -297,12 +394,16 @@ class BatchedEngine:
         # dispatch picks its set on the host (_bucket)
         self._programs = codecs_lib.build_program_table(
             self.codec, self.codec_params, self._make_programs)
-
-    @staticmethod
-    def _refuse_draft(link):
-        if link.draft is not None:
-            raise _not_ported("a link's draft: channel (speculative decoding)",
-                              _SERVING_II)
+        # speculative programs, one per (R bucket, draft R bucket, k > 1),
+        # made here; k = 1 is the vanilla window and has no entry
+        self._spec_programs: dict = {}
+        if self.spec_cfg is not None:
+            for dkey, dc, dp in self._draft_buckets():
+                for key, c, cp in self._codec_buckets():
+                    for k in self.spec_cfg.ladder:
+                        if k > 1:
+                            self._spec_programs[(key, dkey, k)] = \
+                                self._make_spec_program(c, cp, dc, dp, k)
 
     # ------------------------------------------------------------------
     # device state and programs
@@ -320,7 +421,7 @@ class BatchedEngine:
         programs, read back only at admit/retire boundaries."""
         B = self.num_slots
         z = lambda dt: torch.zeros((B,), dtype=dt, device=self.device)  # noqa: E731
-        return {
+        st = {
             "pos": z(torch.int32),         # next cache position to write
             "last_tok": z(torch.int32),    # decode input for the next step
             "active": z(torch.bool),       # prompt fully ingested, generating
@@ -330,14 +431,25 @@ class BatchedEngine:
             "out_buf": torch.zeros((B, self.max_len + 1), dtype=torch.int32,
                                    device=self.device),
         }
+        if self.spec_cfg is not None:
+            # the draft head's feedback feature (the cut-layer feature at
+            # each slot's last verified position) and the per-slot counters
+            # that retire, evict and withdraw fold into the Request
+            st["draft_feat"] = torch.zeros((B, self.cfg.d_model),
+                                           dtype=torch.float32, device=self.device)
+            st["accepted"] = z(torch.int32)
+            st["rejected"] = z(torch.int32)
+            st["rollbacks"] = z(torch.int32)
+        return st
 
     def _host_state(self) -> dict:
         return {k: v.cpu().numpy().copy() for k, v in self.state.items()}
 
     def _make_programs(self, codec, codec_params) -> dict:
-        """One codec's program set: the decode window and the chunked-
-        prefill call.  Both update the slot state with masked writes only,
-        so decoding can run while other slots are empty or mid-prefill."""
+        """One codec's program set: the decode window, the chunked-prefill
+        call and the legacy prefill-as-decode step.  The first two update
+        the slot state with masked writes only, so decoding can run while
+        other slots are empty or mid-prefill."""
         cfg, params, cache = self.cfg, self.params, self.cache
         eos_id, max_len = self.eos_id, self.max_len
         paged, kv_read, gen = self.paged, self.kv_read, self._gen
@@ -352,11 +464,7 @@ class BatchedEngine:
         def commit(state, nxt, write, pos):
             """Masked bookkeeping shared by both programs: rows in ``write``
             append ``nxt`` to their output and may finish."""
-            B, cap = state["out_buf"].shape
-            col = torch.where(write, torch.clamp(state["out_len"], max=cap - 1),
-                              cap)
-            hit = torch.arange(cap, device=col.device)[None, :] == col[:, None]
-            out_buf = torch.where(hit, nxt[:, None], state["out_buf"])
+            out_buf = _append(state["out_buf"], state["out_len"], nxt, write)
             out_len = state["out_len"] + write.to(torch.int32)
             fin = (out_len >= state["max_new"]) | (pos >= max_len)
             if eos_id is not None:
@@ -402,7 +510,135 @@ class BatchedEngine:
             state = commit(state, nxt, completes, pos)
             return {**state, "active": state["active"] | completes}
 
-        return {"window": window_fn, "prefill": prefill_fn}
+        def legacy_fn(tokens, pos, live):
+            """One prefill-as-decode step: every row ingests or decodes one
+            token; returns each row's pick."""
+            logits, _ = lm_lib.decode_step(
+                params, cache, tokens, pos, cfg, codec=codec,
+                codec_params=codec_params, paged=paged, live=live,
+                kv_read=kv_read)
+            return pick(logits[:, -1])
+
+        return {"window": window_fn, "prefill": prefill_fn, "legacy": legacy_fn}
+
+    # ------------------------------------------------------------------
+    # speculative verify/commit programs (repro_torch.serving.spec)
+    # ------------------------------------------------------------------
+
+    def _codec_buckets(self):
+        """(program key, concrete codec, params) per engine R bucket, keyed
+        as ``_bucket()`` dispatches."""
+        if self._adaptive:
+            return [(R, self.codec.buckets[R],
+                     self.codec.params_for(self.codec_params, R))
+                    for R in self.codec.ladder]
+        return [(None, self.codec, self.codec_params)]
+
+    def _draft_buckets(self):
+        """The same for the draft channel's codec (one (None, None, None)
+        entry when the feedback ships raw or the head needs none)."""
+        dc = self.draft_codec
+        if isinstance(dc, codecs_lib.AdaptiveC3SL):
+            return [(R, dc.buckets[R], dc.params_for(self.draft_params, R))
+                    for R in dc.ladder]
+        return [(None, dc, self.draft_params)]
+
+    def _make_spec_program(self, codec, codec_params, d_codec, d_params,
+                           k: int):
+        """One (codec bucket, draft bucket, k) speculative window: a loop of
+        verify/commit rounds, each advancing every live slot 1..k tokens.
+
+        A round (see ``repro_torch.serving.spec``): round-trip each slot's
+        feedback feature through the DRAFT codec and propose k-1 drafts
+        (what the client computes from the feedback payload; drafts are
+        argmax, so simulating the client here is exact); VERIFY the
+        k-position chunk [last_tok, drafts] on the committed cache without
+        writing it (``lm.verify_chunk``); accept the longest matching
+        prefix, group-lockstep under the batch-wise codec, capped at
+        EOS/budget (``spec.accept_lengths``); COMMIT only the accepted
+        tokens through the valid-masked ``lm.chunk_forward`` write path.
+        Greedy verification makes the emitted stream equal the vanilla
+        window's."""
+        cfg, params, cache = self.cfg, self.params, self.cache
+        eos_id, max_len, paged = self.eos_id, self.max_len, self.paged
+        group = getattr(codec, "R", 1) if codec is not None else 1
+        head_mode = self.spec_cfg.draft_head
+        needs_feedback = self.spec_cfg.needs_feedback
+        dev = self.device
+        steps = torch.arange(k, device=dev)
+
+        def round_fn(state):
+            live = state["active"] & ~state["done"]
+            B = live.shape[0]
+            rows = torch.arange(B, device=dev)
+            feat = state["draft_feat"]
+            if needs_feedback and d_codec is not None:
+                # the feedback payload crosses the draft channel: dead rows
+                # add zeros to its superposition; the live rows' cross-talk
+                # can only cost acceptance (the verify consumes raw tokens)
+                feat = torch.where(live[:, None], feat,
+                                   torch.zeros((), dtype=feat.dtype, device=dev))
+                feat = d_codec.decode(d_params, d_codec.encode(d_params, feat))
+            drafts = spec_lib.propose_drafts(params, feat, state["last_tok"],
+                                             k, head_mode)
+            toks_v = torch.cat([state["last_tok"][:, None], drafts], dim=1)
+            logits, feat_seq = lm_lib.verify_chunk(
+                params, cache, toks_v, state["pos"], cfg, codec=codec,
+                codec_params=codec_params, valid=live[:, None].expand(B, k),
+                paged=paged)
+            g = torch.argmax(logits, dim=-1).to(torch.int32)
+            e = spec_lib.accept_lengths(
+                toks_v, g, live, group=group, eos_id=eos_id,
+                rem_new=state["max_new"] - state["out_len"],
+                rem_pos=max_len - state["pos"])
+            out_buf = state["out_buf"]
+            for j in range(k):
+                out_buf = _append(out_buf, state["out_len"] + j, g[:, j],
+                                  live & (j < e))
+            e_live = torch.where(live, e, 0)
+            out_len = state["out_len"] + e_live
+            pos = state["pos"] + e_live
+            toks_c = torch.cat([state["last_tok"][:, None], g[:, :k - 1]], dim=1)
+            lm_lib.chunk_forward(params, cache, toks_c, state["pos"], cfg,
+                                 codec=codec, codec_params=codec_params,
+                                 valid=live[:, None] & (steps[None, :] < e[:, None]),
+                                 paged=paged)
+            last = (e - 1).long()
+            last_emitted = g[rows, last]
+            new_feat = torch.where(live[:, None],
+                                   feat_seq[rows, last].to(torch.float32),
+                                   state["draft_feat"])
+            fin = (out_len >= state["max_new"]) | (pos >= max_len)
+            if eos_id is not None:
+                fin = fin | (last_emitted == eos_id)
+            rej = torch.where(live, k - e, 0)
+            roll = (live & (e < k)).to(torch.int32)
+            state = {**state, "pos": pos, "out_len": out_len, "out_buf": out_buf,
+                     "last_tok": torch.where(live, last_emitted, state["last_tok"]),
+                     "done": state["done"] | (live & fin),
+                     "draft_feat": new_feat,
+                     "accepted": state["accepted"] + e_live,
+                     "rejected": state["rejected"] + rej,
+                     "rollbacks": state["rollbacks"] + roll}
+            return state, torch.stack([e_live.sum(), rej.sum(), roll.sum()])
+
+        def spec_window_fn(state, n_rounds: int):
+            """Up to ``n_rounds`` rounds, stopping once no slot is live: one
+            host read a round (any slot live) and one, at the end, for the
+            counters.  Returns (rounds, accepted, rejected, rollbacks,
+            state)."""
+            i = 0
+            totals = torch.zeros((3,), dtype=torch.int64, device=dev)
+            while i < n_rounds:
+                if not bool((state["active"] & ~state["done"]).any()):
+                    break
+                state, counts = round_fn(state)
+                totals = totals + counts
+                i += 1
+            acc, rej, rol = totals.tolist()
+            return i, acc, rej, rol, state
+
+        return spec_window_fn
 
     # ------------------------------------------------------------------
     # wire accounting
@@ -450,6 +686,35 @@ class BatchedEngine:
         shape = codecs_lib.chunk_payload_shape(c, self.num_slots, self.chunk_size)
         return codecs_lib.payload_wire_bytes(c, shape)
 
+    def _draft_round_wire_bytes(self, k: int) -> int:
+        """Draft-channel bytes one verify round ships, both ways: the
+        server->client feedback payload (the cut-layer feature batch at the
+        draft codec's R; none for the "copy" head, raw float32 without a
+        draft codec) plus the client->server draft token ids (k-1 a slot at
+        the smallest dtype covering the vocab).  The FORWARD channel ships
+        nothing in a verify round: the server knows every decode-time token
+        id and replays the bottom stack itself."""
+        tok_b = spec_lib.token_wire_bytes(self.cfg.vocab_size)
+        ids = (k - 1) * self.num_slots * tok_b
+        if not self.spec_cfg.needs_feedback:
+            return ids
+        dc = self.draft_codec
+        if dc is None:
+            return ids + self.num_slots * self.cfg.d_model * 4
+        c = dc.current if isinstance(dc, codecs_lib.AdaptiveC3SL) else dc
+        return ids + codecs_lib.payload_wire_bytes(c, c.payload_shape(self.num_slots))
+
+    def wire_per_token(self) -> dict:
+        """Wire bytes per GENERATED token across the serving channels,
+        counting the tokens of retired requests; call after draining for
+        exact totals."""
+        n = self._tokens_decoded
+        fwd = self.stats["wire_bytes_fwd"]
+        draft = self.stats["wire_bytes_draft"]
+        return {"generated_tokens": n, "wire_bytes_fwd": fwd,
+                "wire_bytes_draft": draft,
+                "wire_bytes_per_token": (fwd + draft) / max(n, 1)}
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -475,10 +740,47 @@ class BatchedEngine:
         self._dirty = True            # a later run() must re-check admission
 
     def withdraw(self, uid: int):
-        raise _not_ported("withdraw", _SERVING_II)
+        """Pull a queued or running request OUT of the engine (a client
+        disconnect): its slot and pages free at once and the returned
+        ``Request`` carries the tokens emitted so far, so a later ``submit``
+        of the same object re-prefills prompt + emitted tokens and greedy
+        decode resumes identically (the machinery preemption uses).
+        Returns None for a finished or unknown uid."""
+        for j, req in enumerate(self.queue):
+            if req.uid == uid:
+                del self.queue[j]
+                self.stats["withdrawn"] += 1
+                return req
+        for i, slot in enumerate(self.slots):
+            if slot.req is None or slot.req.uid != uid:
+                continue
+            req = slot.req
+            self.stats["withdrawn"] += 1
+            if self.prefill_mode == "chunked":
+                st = self._host_state()
+                n = int(st["out_len"][i])
+                req.out = [int(t) for t in st["out_buf"][i, :n]]
+                self._fold_spec_counters(i, req, st)
+                _clear_row(st, i)
+                self._put_state(st)
+            self._stream_mark.pop(uid, None)
+            req.evictions += 1
+            req.done = False
+            slot.req = None
+            slot.feed = []
+            slot.ingested = 0
+            slot.pos = slot.in_prompt = 0
+            self._free_slot_pages(i)
+            self._dirty = True
+            return req
+        return None
 
-    def pop_stream_events(self):
-        raise _not_ported("stream events", _SERVING_II)
+    def pop_stream_events(self) -> list[tuple[int, int, list[int]]]:
+        """Drain the (uid, start, tokens) bursts collected since the last
+        call.  ``start`` is the burst's absolute offset in the request's
+        output, so a receiver that missed a burst sees the gap."""
+        ev, self.stream_events = self.stream_events, []
+        return ev
 
     def attach_sanitizer(self, sanitizer) -> None:
         raise _not_ported("the engine sanitizer", "ROADMAP.md slice 7 (tooling)")
@@ -493,6 +795,8 @@ class BatchedEngine:
         return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
+        if self.prefill_mode == "decode":
+            return self._run_legacy(max_steps)
         steps = 0
         while steps < max_steps:
             self._boundary()
@@ -505,7 +809,10 @@ class BatchedEngine:
     def tick(self) -> bool:
         """One admission/compute iteration, the incremental form of
         :meth:`run`: a boundary, at most one prefill pass / decode window,
-        and a second boundary.  Returns False when the engine is idle."""
+        and a second boundary (one legacy ``step()`` in decode mode).
+        Returns False when the engine is idle."""
+        if self.prefill_mode == "decode":
+            return bool(self.step())
         self._boundary()
         if not (self.queue or self.active):
             return False
@@ -532,11 +839,51 @@ class BatchedEngine:
     # fast path internals
     # ------------------------------------------------------------------
 
+    def _spec_k(self) -> int:
+        """The k the next decode window speculates at (1 = vanilla).  A
+        starved page pool drops to vanilla windows: their per-token EOS
+        early exit frees a finished slot's reservation mid-window."""
+        if self.spec_cfg is None or self._pool_starved():
+            return 1
+        return self._k_ctl.current_k
+
+    def _spec_window(self, n: int, k: int) -> int:
+        """One speculative window: ceil(n/k) verify/commit rounds; returns
+        the tokens emitted."""
+        n_rounds = -(-min(n, self._window_len) // k)
+        bucket = self._bucket()
+        dkey = codecs_lib.program_key(self.draft_codec)
+        rounds, acc, rej, rol, self.state = \
+            self._spec_programs[(bucket, dkey, k)](self.state, n_rounds)
+        self.stats["dispatches"] += 1
+        self.stats["decode_steps"] += acc
+        self.stats["spec_windows"] += 1
+        self.stats["spec_rounds"] += rounds
+        self.stats["spec_accepted"] += acc
+        self.stats["spec_rejected"] += rej
+        self.stats["spec_rollbacks"] += rol
+        # the forward channel ships nothing; the draft channel carries each
+        # round's feedback and draft ids
+        self.stats["wire_bytes_draft"] += rounds * self._draft_round_wire_bytes(k)
+        if bucket is not None:
+            # one count per token served through the bucket's codec
+            self.r_served[bucket] += acc
+        self.k_served[k] += rounds
+        if acc + rej:
+            self._k_ctl.observe(acc / (acc + rej))
+        if acc:
+            self._dirty = True
+        return acc
+
     def _decode_window(self, n: int) -> int:
         """Run one decode window of up to n steps; returns the steps the
-        device actually executed before the batch drained."""
+        device actually executed before the batch drained.  Under
+        spec_decode with a current k > 1 the window is a speculative one."""
         if n <= 0:
             return 0
+        k = self._spec_k()
+        if k > 1:
+            return self._spec_window(n, k)
         n = min(n, self._window_len)
         bucket = self._bucket()
         stop_on_done = self._pool_starved()
@@ -551,8 +898,9 @@ class BatchedEngine:
             st = self._host_state()
             if bool(np.any(st["active"] & ~st["done"])):
                 self.stats["eos_early_exits"] += 1
+            self._collect_stream(st)
             if self._retire_done(st):
-                self.state = {k: self._to_device(v) for k, v in st.items()}
+                self._put_state(st)
         if bucket is not None:
             self.r_served[bucket] += executed
         if executed:
@@ -617,6 +965,10 @@ class BatchedEngine:
                     self.slots[i].req.t_first = now
             self._dirty = True
 
+    def _put_state(self, st: dict):
+        """Write a host copy of the slot state back to the device."""
+        self.state = {k: self._to_device(v) for k, v in st.items()}
+
     def _retire_done(self, st, now: float | None = None) -> bool:
         """Retire every slot whose done flag is set in the host copy ``st``:
         capture its outputs at their actual length and free its pages."""
@@ -633,24 +985,104 @@ class BatchedEngine:
                 slot.req.out = [int(t) for t in st["out_buf"][i, :n]]
                 slot.req.done = True
                 self.finished.append(slot.req)
+                self._tokens_decoded += n
+                self._fold_spec_counters(i, slot.req, st)
+                self._stream_mark.pop(slot.req.uid, None)
                 slot.req = None
                 slot.feed = []
                 self._free_slot_pages(i)
-                st["active"][i] = st["done"][i] = False
-                st["pos"][i] = st["last_tok"][i] = st["out_len"][i] = 0
-                st["out_buf"][i, :] = 0
+                _clear_row(st, i)
                 touched = True
         return touched
 
+    def _fold_spec_counters(self, i: int, req: Request, st):
+        """Fold slot i's speculative counters into the request (retire,
+        evict and withdraw: totals survive preemption) and zero the slot's
+        speculative state so the next resident starts clean."""
+        if "accepted" not in st:
+            return
+        req.accepted += int(st["accepted"][i])
+        req.rejected += int(st["rejected"][i])
+        req.rollbacks += int(st["rollbacks"][i])
+        st["accepted"][i] = st["rejected"][i] = st["rollbacks"][i] = 0
+        st["draft_feat"][i, :] = 0
+
+    def _collect_stream(self, st):
+        """Harvest the tokens emitted since each resident request's stream
+        watermark into ``stream_events``, from a host copy the engine makes
+        anyway (boundaries, early retires): streaming costs no extra device
+        round trip.  Drain with :meth:`pop_stream_events`."""
+        for i, slot in enumerate(self.slots):
+            if slot.req is None:
+                continue
+            uid = slot.req.uid
+            n = int(st["out_len"][i])
+            mark = self._stream_mark.get(uid, 0)
+            if n > mark:
+                self.stream_events.append(
+                    (uid, mark, [int(t) for t in st["out_buf"][i, mark:n]]))
+                self._stream_mark[uid] = n
+
+    def _evict(self, i: int, st):
+        """Preempt slot ``i`` mid-flight: capture the tokens it emitted,
+        free its pages, and re-queue the request right behind the
+        preempting head (position 1, so one high-priority arrival cannot
+        starve it).  On re-admission it re-prefills prompt + emitted tokens
+        and greedy decode resumes identically."""
+        slot = self.slots[i]
+        req = slot.req
+        n = int(st["out_len"][i])
+        req.out = [int(t) for t in st["out_buf"][i, :n]]
+        req.evictions += 1
+        self.stats["evictions"] += 1
+        self._fold_spec_counters(i, req, st)
+        slot.req = None
+        slot.feed = []
+        slot.ingested = 0
+        self._free_slot_pages(i)
+        _clear_row(st, i)
+        self.queue.insert(1, req)
+
+    def _preempt_for(self, st, head: Request) -> bool:
+        """Make room for the blocked head-of-queue request by evicting
+        strictly-lower-priority slots, least progress first.  Evicts nothing
+        when even every victim together cannot cover the head's pages.
+        Returns True when something was evicted (admission retries)."""
+        if not self.preemption:
+            return False
+        victims = [i for i, s in enumerate(self.slots)
+                   if s.req is not None and s.req.priority < head.priority]
+        if not victims:
+            return False
+        victims.sort(key=lambda i: (self.slots[i].req.priority, int(st["pos"][i])))
+        paged = self.paged is not None and self._linear_backed
+        if paged:
+            need = self.paged.pages_for(len(head.prompt) + head.max_new_tokens)
+            if need > self.allocator.free_pages + sum(
+                    len(self.slots[i].pages) for i in victims):
+                return False       # hopeless: keep the victims running
+        evicted = False
+        for i in victims:
+            have_slot = any(s.req is None for s in self.slots)
+            have_pages = not paged or need <= self.allocator.free_pages
+            if have_slot and have_pages:
+                break
+            self._evict(i, st)
+            evicted = True
+        return evicted
+
     def _boundary(self):
-        """Admit/retire boundary: the only host sync outside the decode
-        window's per-step flags.  Retire frees a slot's pages; admission is
-        FIFO and waits until the head request's reservation fits the pool.
-        Skipped while nothing can have changed since the last one."""
+        """Admit/retire boundary: the one host copy of the slot state
+        outside the decode windows' flags.  Retire frees a slot's pages;
+        admission is FIFO and waits until the head request's reservation
+        fits, unless ``preemption`` is on and the head outranks running
+        slots, which are then evicted.  Skipped while nothing can have
+        changed since the last one."""
         if not self._dirty:
             return
         self._dirty = False
         st = self._host_state()
+        self._collect_stream(st)
         touched = self._retire_done(st)
         admitted: list[int] = []
         while self.queue:
@@ -658,19 +1090,29 @@ class BatchedEngine:
             i = next((j for j, s in enumerate(self.slots) if s.req is None),
                      None)
             if i is None or not self._alloc_slot_pages(i, head):
-                break                      # FIFO: wait for a slot / pages
+                if not self._preempt_for(st, head):
+                    break                  # FIFO: wait for a slot / pages
+                touched = True
+                continue                   # room was made: retry the head
             slot = self.slots[i]
             slot.req = self.queue.popleft()
             slot.ingested = 0
-            slot.feed = list(slot.req.prompt)
-            st["active"][i] = st["done"][i] = False
-            st["pos"][i] = st["last_tok"][i] = st["out_len"][i] = 0
+            # a re-admitted request re-prefills its emitted tokens too and
+            # resumes with out_len/out_buf seeded, so the completing prefill
+            # commits its next token
+            slot.feed = list(slot.req.prompt) + list(slot.req.out)
+            k = len(slot.req.out)
+            _clear_row(st, i)
+            st["out_len"][i] = k
             st["max_new"][i] = slot.req.max_new_tokens
-            st["out_buf"][i, :] = 0
+            if k:
+                st["out_buf"][i, :k] = slot.req.out
+            # stream watermark: the tokens in req.out were delivered already
+            self._stream_mark.setdefault(slot.req.uid, k)
             admitted.append(i)
             touched = True
         if touched:
-            self.state = {k: self._to_device(v) for k, v in st.items()}
+            self._put_state(st)
         if admitted:
             if self.paged is not None:
                 self.cache["pages"] = self._to_device(self._table)
@@ -714,3 +1156,99 @@ class BatchedEngine:
         self.allocator.free(self.slots[i].pages)
         self.slots[i].pages = []
         self._table[i, :] = 0
+
+    # ------------------------------------------------------------------
+    # legacy path (prefill as decode, one host sync a token): the baseline
+    # ------------------------------------------------------------------
+
+    def _admit(self):
+        for i, slot in enumerate(self.slots):
+            if slot.req is None and self.queue:
+                if not self._alloc_slot_pages(i, self.queue[0]):
+                    break
+                slot.req = self.queue.popleft()
+                slot.pos = 0
+                slot.in_prompt = 0
+                slot.feed = list(slot.req.prompt) + list(slot.req.out)
+                if self.paged is not None:
+                    self.cache["pages"] = self._to_device(self._table)
+                self._reset_rows([i])
+
+    def step(self):
+        """One legacy engine step: every occupied slot ingests or decodes
+        one token ("prefill as decode"), then a host sync."""
+        self._admit()
+        if self.active == 0:
+            return False
+        tokens = np.zeros((self.num_slots, 1), np.int32)
+        pos = np.zeros((self.num_slots,), np.int32)
+        occupied = np.zeros((self.num_slots,), bool)
+        for i, s in enumerate(self.slots):
+            if s.req is None:
+                continue
+            occupied[i] = True
+            tokens[i, 0] = (s.feed[s.in_prompt] if s.in_prompt < len(s.feed)
+                            else s.req.out[-1])
+            pos[i] = s.pos
+        # contiguous: unmasked writes (an empty row writes its own zeroed
+        # strip, as the reference); paged: empty rows hold no pages, so
+        # their writes are masked
+        live = self._to_device(occupied) if self.paged is not None else None
+        bucket = self._bucket()
+        nxt = self._programs[bucket]["legacy"](
+            self._to_device(tokens), self._to_device(pos), live)
+        self.stats["dispatches"] += 1
+        # one batch step a dispatch: the chunked path's decode_steps unit
+        self.stats["decode_steps"] += 1
+        self._account_fwd_bytes(self._step_wire_bytes())
+        if bucket is not None:
+            self.r_served[bucket] += 1
+        nxt = nxt.cpu().numpy()
+        for i, s in enumerate(self.slots):
+            if s.req is None:
+                continue
+            s.pos += 1
+            fed_prompt = s.in_prompt < len(s.feed)
+            if fed_prompt:
+                s.in_prompt += 1
+            # the last prompt token's logits give the first generated token
+            if not fed_prompt or s.in_prompt == len(s.feed):
+                tok = int(nxt[i])
+                s.req.out.append(tok)
+                if s.req.t_first is None:
+                    s.req.t_first = time.monotonic()
+                self._tokens_decoded += 1
+                if (self.eos_id is not None and tok == self.eos_id) \
+                        or len(s.req.out) >= s.req.max_new_tokens \
+                        or s.pos >= self.max_len:
+                    s.req.done = True
+            if s.req.done:
+                self.finished.append(s.req)
+                s.req = None
+                self._free_slot_pages(i)
+        return True
+
+    def _run_legacy(self, max_steps: int) -> list[Request]:
+        steps = 0
+        while (self.queue or self.active) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.finished
+
+
+def _append(out_buf, out_len, tok, write):
+    """``out_buf`` with ``tok`` at column ``out_len`` (clamped to the last
+    column) on the rows ``write`` marks: the reference's scatter with
+    mode="drop", as a masked select (no host read)."""
+    B, cap = out_buf.shape
+    col = torch.where(write, torch.clamp(out_len, max=cap - 1), cap)
+    hit = torch.arange(cap, device=col.device)[None, :] == col[:, None]
+    return torch.where(hit, tok[:, None], out_buf)
+
+
+def _clear_row(st, i: int):
+    """Zero slot ``i``'s position, flags, token and output in the host
+    copy ``st`` (retire, evict, withdraw, admit)."""
+    st["active"][i] = st["done"][i] = False
+    st["pos"][i] = st["last_tok"][i] = st["out_len"][i] = 0
+    st["out_buf"][i, :] = 0

@@ -119,9 +119,9 @@ def test_unported_features_raise():
     (an encoder-decoder model's with its encoder's memory over the frames),
     one prefill chunk and one decode step, and for the decoder-only ones
     an engine run.  The engine refuses the encoder-decoder model (as the
-    reference's fails on it), and what stays unported (the legacy
-    ``prefill_mode="decode"``, slice 5) still raises NotImplementedError
-    on a stateful arch."""
+    reference's fails on it); on a stateful arch the legacy
+    ``prefill_mode="decode"`` engine (ported since ROADMAP.md A18) gives
+    the chunked engine's tokens."""
     from repro_torch.serving.engine import BatchedEngine, Request
     toks = torch.tensor([[3, 4, 5, 6], [7, 8, 9, 10]])
     for arch in ("jamba-1.5-large-398b", "rwkv6-1.6b",
@@ -146,10 +146,12 @@ def test_unported_features_raise():
             continue
         eng = BatchedEngine(params, cfg, **kw)
         eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
-        assert [len(r.out) for r in eng.run()] == [2]
+        chunked = [r.out for r in eng.run()]
+        assert [len(o) for o in chunked] == [2]
         if arch == "rwkv6-1.6b":
-            with pytest.raises(NotImplementedError, match="slice 5"):
-                BatchedEngine(params, cfg, prefill_mode="decode", **kw)
+            legacy = BatchedEngine(params, cfg, prefill_mode="decode", **kw)
+            legacy.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+            assert [r.out for r in legacy.run()] == chunked
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ seeds.  Sizes are ``reduced()`` configs at S = 8, so the cut's D = S *
 d_model = 2048 and the reference's Pallas kernel runs in interpret mode in
 seconds.  The port's ``backend=pallas`` runs its kernels' plain versions on
 CPU tensors."""
+import dataclasses
 import functools
 
 import numpy as np
@@ -263,19 +264,30 @@ NEW_FAMILIES = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b",
 @pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_unported_kinds_and_features_raise(arch):
     """Every arch trains and serves (the attention-cache families since
-    ROADMAP.md A10a, the stateful and memory ones since A10b):
-    ``check_servable``, each sublayer kind's own decode cache, the model's
-    decode cache ("first" with a first-dense superblock, "memory" for an
-    encoder-decoder model), one ``prefill_chunk``, one ``decode_step``, and
-    an engine run, which an encoder-decoder model is refused, as in the
-    reference.  What stays unported (the engine's legacy
-    ``prefill_mode="decode"``, slice 5) still raises NotImplementedError."""
+    ROADMAP.md A10a, the stateful and memory ones since A10b): every kind
+    is one the config knows (``ModelConfig`` rejects any other, and the
+    serving dispatch raises ``ValueError(kind)`` for one), each sublayer
+    kind's own decode cache, the model's decode cache ("first" with a
+    first-dense superblock, "memory" for an encoder-decoder model), one
+    ``prefill_chunk``, one ``decode_step``, and an engine run, which an
+    encoder-decoder model is refused, as in the reference, in both prefill
+    modes.  The legacy ``prefill_mode="decode"`` engine (ported since
+    ROADMAP.md A18) gives the chunked engine's tokens."""
     from repro_torch.serving.engine import BatchedEngine, Request
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     params = tlm.init_lm_params(0, cfg, device="cpu")
     kinds = {k for layer in cfg.block_pattern for k in layer}
-    assert kinds <= set(tstack.SERVE_KINDS)
-    tlm.check_servable(cfg)
+    assert kinds <= set(tconfigs.SUBLAYER_KINDS)
+    with pytest.raises(AssertionError):
+        dataclasses.replace(cfg, block_pattern=(("bogus",),))
+    x = torch.zeros((2, 1, cfg.d_model))
+    with pytest.raises(ValueError, match="bogus"):
+        tstack.apply_sublayer_decode("bogus", {"norm": params["final_norm"]},
+                                     {}, cfg, x, 0)
+    with pytest.raises(ValueError, match="bogus"):
+        tstack.apply_sublayer_prefill("bogus", {"norm": params["final_norm"]},
+                                      {}, cfg, x, torch.zeros(2, dtype=torch.int32),
+                                      torch.ones((2, 1), dtype=torch.bool))
     for kind in sorted(kinds):
         c = tstack.init_sublayer_cache(kind, cfg, 2, 16, torch.float32,
                                        device="cpu")
@@ -294,12 +306,15 @@ def test_unported_kinds_and_features_raise(arch):
     assert logits.shape == (2, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     kw = dict(num_slots=2, max_len=16, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        BatchedEngine(params, cfg, prefill_mode="decode", **kw)
     if cfg.is_encdec:
-        with pytest.raises(ValueError, match="encoder-decoder"):
-            BatchedEngine(params, cfg, **kw)
+        for mode in ("chunked", "decode"):
+            with pytest.raises(ValueError, match="encoder-decoder"):
+                BatchedEngine(params, cfg, prefill_mode=mode, **kw)
         return
-    eng = BatchedEngine(params, cfg, **kw)
-    eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
-    assert [len(r.out) for r in eng.run()] == [2]
+    outs = []
+    for mode in ("chunked", "decode"):
+        eng = BatchedEngine(params, cfg, prefill_mode=mode, **kw)
+        eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        outs.append([r.out for r in eng.run()])
+    assert [len(o) for o in outs[0]] == [2]
+    assert outs[1] == outs[0]

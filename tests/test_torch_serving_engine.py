@@ -2,8 +2,8 @@
 the same weights and codec keys: greedy outputs token for token, and the
 integer stats (dispatches, decode_steps, prefill_chunks, wire_bytes_fwd)
 and pool accounting exactly, over the kv_layout x kv_read combinations.
-Also the loud gating of the kernel read and of what is not ported yet, and
-the serve CLI on the CPU."""
+Also the loud gating of the kernel read, the option checks the reference
+makes, what is not ported yet, and the serve CLI on the CPU."""
 import dataclasses
 import functools
 import warnings
@@ -227,15 +227,29 @@ def test_execution_modes_in_stats():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(prefill_mode="decode"), "slice 5"),
-    (dict(preemption=True), "slice 5"),
-    (dict(spec_decode=True), "slice 5"),
-    (dict(codec="c3sl:R=4 >> draft:c3sl:R=2"), "slice 5"),
-    (dict(codec="c3sl:R=4 >> bwd:c3sl:R=2 >> draft:c3sl:R=2"), "slice 5")])
+    (dict(greedy=False, spec_decode=True), "requires greedy"),
+    (dict(prefill_mode="decode", spec_decode=True), "requires prefill_mode='chunked'"),
+    (dict(spec_decode="ladder past the window"), "exceeds sliding_window"),
+    (dict(prefill_mode="decode", preemption=True), "preemption requires"),
+    (dict(codec="c3sl:R=4 >> draft:c3sl:R=2", greedy=False), "requires greedy"),
+    (dict(codec="c3sl:R=4 >> bwd:c3sl:R=2 >> draft:c3sl:R=2",
+          prefill_mode="decode"), "requires prefill_mode='chunked'")])
 def test_unported_options_raise(kw, match):
-    _, tcfg, _, pt = _weights("plain")
-    with pytest.raises(NotImplementedError, match=match):
-        tengine.BatchedEngine(pt, tcfg, **kw)
+    """What these options refused before they were ported, they now check
+    as the reference does, with its errors in both packages: speculative
+    decoding needs greedy decoding and chunked prefill, its ladder must not
+    pass the sliding window, preemption needs chunked prefill, and a link's
+    draft: segment turns speculation on (so its checks apply)."""
+    from repro.serving.spec import SpecConfig as JSpec
+    from repro_torch.serving.spec import SpecConfig as TSpec
+    jcfg, tcfg, pj, pt = _weights("plain")
+    for mod, p, cfg, spec in ((jengine, pj, jcfg, JSpec), (tengine, pt, tcfg, TSpec)):
+        over = dict(kw)
+        if over.get("spec_decode") == "ladder past the window":
+            cfg = dataclasses.replace(cfg, sliding_window=4)
+            over["spec_decode"] = spec(k=8)
+        with pytest.raises(ValueError, match=match):
+            mod.BatchedEngine(p, cfg, **over)
 
 
 # the SNR stream both engines' controllers see, one value per tick
@@ -297,11 +311,13 @@ def test_control_plane_engine_matches_reference_engine(codec, kv_read):
 
 
 def test_unported_methods_raise():
+    """The sanitizer is the one refusal left (ROADMAP.md slice 7); withdraw
+    and the stream events are ported (tests/test_torch_preemption.py) and
+    answer an idle engine as the reference's does."""
     eng = _port_engine("plain", "paged", "gather", None)
-    for call in (lambda: eng.withdraw(0), eng.pop_stream_events,
-                 lambda: eng.attach_sanitizer(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
+        eng.attach_sanitizer(None)
+    assert eng.withdraw(0) is None and eng.pop_stream_events() == []
 
 
 def test_submit_rejects_what_the_reference_rejects():
