@@ -307,18 +307,58 @@ Phases (any failure exits non-zero, and no result line is printed):
    d. The legacy ``prefill_mode="decode"``, 4 requests with the codec:
       tokens against the vanilla run's for them (the same codec group).
 
+16. The networked front door (``repro_torch.frontdoor``) on ``deepseek-7b``
+   at full width and depth, at phase 4's settings (float32, TF32 off, 8
+   slots, max_len 512, paged, page 16, chunk 64, ``sync_every`` 8, greedy,
+   the kernel read, ``c3sl:R=4,backend=pallas``), after ``free_cuda()``: the
+   port's server and clients on one event loop over ``127.0.0.1``, port 0.
+   Every engine run is a ``serve_run`` driven through the door and held by
+   ``check_family_run`` (bind and unbind by shape, the paged kernel 30 times
+   a vanilla step, the wire bytes exact); each records every ``tick()``'s
+   wall time, and its books at the end (STATS before the server stops): no
+   admission unit held, the pool whole, no tick error, no session detached
+   and the longest tick under the server's heartbeat deadline (5 s x 3)
+   but in c.
+   a. Two tenants stage 16 requests of 128 + 32 with ``auto_tick=False``,
+      then ``drain()``: each RESULT equals the engine's output and phase
+      4's kernel run by the near-tie rule (flips counted); the TOKENS
+      bursts joined equal each RESULT; STATS carries the engine's counters.
+   b. ``auto_tick=True`` with the server's default heartbeats: a probe of
+      4 requests one at a time (the client's TTFT to its first TOKENS frame
+      against the engine's, the STATS round trip, a RESULT frame's encode
+      and decode on the host), then 3 tenants of 8 concurrent ``generate``
+      calls of 64 + 16 against ``TenantPolicy(max_inflight=2)`` and
+      ``max_queue_depth=4``: every request completes through BUSY retries
+      (BUSY > 0), no tenant disconnected; per-tenant TTFT p50/p99,
+      tokens/s and bytes from STATS; the longest tick.
+   c. The selfcheck's sequential run (3 tenants x 2 requests of 64 + 16),
+      fault-free and then under its seeded ``chaos_plan()`` (drops and
+      corruption both ways, one forced disconnect per direction): tokens
+      bit-identical, recovery events > 0.
+   d. Speculation through the door: phase 15a's link and tied head at k
+      4, one tenant pinning ``draft`` in HELLO, 8 requests of 128 + 32
+      staged and drained: tokens against a's by the near-tie rule, the
+      RESULTs' spec counters summing to the engine's, draft bytes exact; a
+      client pinning another draft spec refused at the handshake.
+   e. The CLI: ``python -m repro_torch.launch.serve --arch deepseek-7b
+      --reduced --frontdoor --port 0 --codec "c3sl:R=4|int8"`` as a
+      subprocess on the card: its address line, 3 requests and STATS
+      through a port client, SIGINT, its closing line and exit code 0.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -512,6 +552,21 @@ PREEMPT_LOW, PREEMPT_HIGH = 12, 4
 LEGACY_REQUESTS = 4
 NEAR_TIE = 1e-4             # a flip's vanilla top-2 gap, of max|logit|
 CACHE_TOL = 1e-4            # spec cache vs vanilla, of each leaf's max|value|
+# phase 16, the front door over loopback at phase 4's settings: b's three
+# tenants of 8 requests against a cap of 2 in flight each and a backlog of
+# 4, after 4 probe requests one at a time; c's selfcheck run of 3 tenants x
+# 2 requests; d's speculative run, its clients pinning the draft channel
+DOOR_TENANTS, DOOR_REQUESTS, DOOR_PROBES = 3, 8, 4
+DOOR_PROMPT, DOOR_NEW = 64, 16
+DOOR_INFLIGHT, DOOR_QUEUE = 2, 4
+DOOR_CHAOS_REQUESTS = 2
+DOOR_SPEC_REQUESTS = 8
+SPEC_DRAFT_PIN = "c3sl:R=8,backend=pallas"
+WRONG_DRAFT = "c3sl:R=4,backend=pallas"
+DOOR_STATS_CALLS = 20
+DOOR_FRAME_CALLS = 2000
+DOOR_CLI_REQUESTS = 3
+DOOR_CLI_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -1048,9 +1103,9 @@ def n_attn_layers(cfg) -> int:
                                      for k in layer)
 
 
-def serve_prompts(n: int, vocab: int) -> list:
+def serve_prompts(n: int, vocab: int, length: int = SERVE_PROMPT) -> list:
     rng = np.random.RandomState(SEED + 1)
-    return rng.randint(0, vocab, (n, SERVE_PROMPT)).tolist()
+    return rng.randint(0, vocab, (n, length)).tolist()
 
 
 @contextlib.contextmanager
@@ -1094,9 +1149,10 @@ def make_engine(params, cfg, kv_read: str, **over):
 
 
 def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
-              drive=None, gaps=False, **over):
-    """One engine run of ``n_req`` requests (``over`` overrides
-    SERVE_ENGINE's settings), launch counts and, with experts, the MoE
+              drive=None, gaps=False, prompt_len=SERVE_PROMPT, **over):
+    """One engine run of ``n_req`` requests of ``prompt_len`` tokens
+    (``over`` overrides SERVE_ENGINE's settings), launch counts and, with
+    experts, the MoE
     routing log reset just before and read just after.  ``drive(eng,
     prompts)`` replaces "submit every prompt, then ``run()``" and returns
     (the finished requests, a dict merged into the record).  With ``gaps``
@@ -1118,7 +1174,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
             owners.append((req.uid, list(eng.slots[i].pages)))
         return got
     eng._alloc_slot_pages = owned_alloc
-    prompts = serve_prompts(n_req, cfg.vocab_size)
+    prompts = serve_prompts(n_req, cfg.vocab_size, prompt_len)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.reset_launch_counts()
@@ -1148,9 +1204,9 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
     st = eng.stats
     spec = eng.spec_cfg
     rec = {"kv_read": kv_read, "kv_layout": eng.kv_layout, "requests": n_req,
-           "max_new": max_new, "completed": len(done), "generated": gen,
-           "wall_s": wall, "tokens_per_s": gen / wall,
-           "total_tokens_per_s": (gen + n_req * SERVE_PROMPT) / wall,
+           "prompt_len": prompt_len, "max_new": max_new, "completed": len(done),
+           "generated": gen, "wall_s": wall, "tokens_per_s": gen / wall,
+           "total_tokens_per_s": (gen + n_req * prompt_len) / wall,
            "mean_ttft_ms": statistics.mean(r.t_first - r.t_submit
                                            for r in done) * 1e3,
            "finite_logits": finite[0], "launches": counts,
@@ -2300,6 +2356,415 @@ def serving_ii_plan() -> list:
             ServeRun("legacy", n_req=LEGACY_REQUESTS,
                      over=dict(prefill_mode="decode"), against="vanilla",
                      expect=legacy)]
+
+
+# --------------------------------------------------------------------------
+# phase 16: the networked front door (repro_torch.frontdoor) over loopback
+# --------------------------------------------------------------------------
+
+def door_hooks(eng):
+    """Record each Request the door submits to ``eng`` (by uid; a resumed
+    request is the same object) and each ``tick()``'s wall seconds (a tick
+    ends in a host read, so its wall time is its own)."""
+    reqs, ticks = {}, []
+    submit, tick = eng.submit, eng.tick
+
+    def submitted(req):
+        submit(req)
+        reqs[req.uid] = req
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            return tick()
+        finally:
+            ticks.append(time.perf_counter() - t0)
+    eng.submit, eng.tick = submitted, timed
+    return reqs, ticks
+
+
+def door_books(what: str, st: dict, server, ticks, strict=True) -> dict:
+    """What a door run must leave in ``st`` (STATS at its end, before the
+    server stops): no admission unit held, the pool whole, no tick error;
+    with ``strict`` no session detached and the longest tick under the
+    server's heartbeat deadline (heartbeat_s x max_misses)."""
+    acct = st["engine"]["pool"]
+    check(server.tick_error is None, f"{what}: the tick loop died: "
+          f"{server.tick_error!r}")
+    check(st["admission"]["inflight_total"] == 0,
+          f"{what}: admission holds {st['admission']}")
+    check(acct["free"] == acct["total"] and acct["in_use"] == 0,
+          f"{what}: pool not whole: {acct}")
+    check(not strict or st["sessions"]["detached"] == 0,
+          f"{what}: sessions {st['sessions']}")
+    limit = server.heartbeat_s * server.max_misses
+    check(not strict or max(ticks) < limit, f"{what}: longest tick "
+          f"{max(ticks):.3f} s, past the heartbeat deadline {limit} s")
+    return {"ticks": len(ticks), "longest_tick_s": max(ticks),
+            "heartbeat_deadline_s": limit, "sessions": st["sessions"]}
+
+
+def door_staged_drive(tenants: int, draft=None):
+    """16a and 16d: ``tenants`` clients stage every prompt in order (tenant
+    t the t-th share) with ``auto_tick=False``, so the engine's queue is a
+    direct run's, then the server drains.  Every RESULT equals the engine's
+    output for its uid, the TOKENS bursts joined equal it with no gap, and
+    STATS carries the engine's counters.  With ``draft`` the clients pin
+    it, a client pinning WRONG_DRAFT is refused at the handshake, and the
+    RESULTs' spec counters sum to the engine's."""
+    from repro_torch.frontdoor import (FrontDoorClient, FrontDoorError,
+                                       FrontDoorServer)
+
+    def drive(eng, prompts):
+        reqs, ticks = door_hooks(eng)
+
+        async def go():
+            server = FrontDoorServer(eng, auto_tick=False)
+            host, port = await server.start()
+            clients = [await FrontDoorClient.open(
+                host, port, tenant=f"tenant-{t}", codec=SERVE_CODEC, draft=draft)
+                for t in range(tenants)]
+            share = -(-len(prompts) // tenants)
+            rids = []
+            for i, p in enumerate(prompts):
+                c = clients[i // share]
+                rids.append((c, await c.submit(p, max_new=SERVE_NEW)))
+            refused = None
+            if draft is not None:
+                try:
+                    await FrontDoorClient.open(host, port, tenant="wrong-draft",
+                                               codec=SERVE_CODEC, draft=WRONG_DRAFT)
+                except FrontDoorError as e:
+                    refused = str(e)
+            await server.drain()
+            results = [await c.result(r) for c, r in rids]
+            stats = await clients[0].stats()
+            for c in clients:
+                await c.close()
+            end = server.stats()
+            await server.stop(drain=False)
+            return server, results, stats, end, refused
+
+        server, results, stats, end, refused = asyncio.run(go())
+        what = f"door staged ({tenants} tenants)"
+        books = door_books(what, end, server, ticks)
+        check(sorted(reqs) == list(range(len(prompts))), f"{what}: uids "
+              f"{sorted(reqs)}")
+        for uid, res in enumerate(results):
+            check(res["tokens"] == reqs[uid].out, f"{what}: uid {uid} RESULT "
+                  "differs from the engine's output")
+            check(res["streamed"] == res["tokens"], f"{what}: uid {uid} "
+                  f"streamed {len(res['streamed'])} tokens, not its output")
+        est = stats["engine"]
+        for k in ("wire_bytes_fwd", "wire_bytes_draft", "decode_steps",
+                  "prefill_chunks", "spec_rounds"):
+            check(est[k] == eng.stats[k], f"{what}: STATS {k} {est[k]}, the "
+                  f"engine's {eng.stats[k]}")
+        spec = {k: sum(r[k] for r in results)
+                for k in ("accepted", "rejected", "rollbacks")}
+        check([spec[k] for k in ("accepted", "rejected", "rollbacks")]
+              == [eng.stats[f"spec_{k}"] for k in ("accepted", "rejected",
+                                                   "rollbacks")],
+              f"{what}: RESULT spec counters {spec}, the engine's "
+              f"{ {k: eng.stats[k] for k in eng.stats if k.startswith('spec_')} }")
+        if draft is not None:
+            check(refused is not None and "draft-channel mismatch" in refused,
+                  f"{what}: a client pinning {WRONG_DRAFT!r} was not refused "
+                  f"({refused!r})")
+        door = {**books, "tenants": tenants, "result_spec": spec,
+                "stats_wire_bytes_fwd": est["wire_bytes_fwd"],
+                "refused": refused, "hello_draft": draft}
+        return [reqs[u] for u in sorted(reqs)], {"door": door}
+    return drive
+
+
+async def door_probe(host, port, prompts) -> dict:
+    """One request at a time on an otherwise idle engine: the client's
+    TTFT (``submit`` to its first TOKENS frame) against the engine's
+    (RESULT's ``ttft_s``: engine submit to first token), the STATS round
+    trip, and the host time to encode and decode one RESULT frame."""
+    from repro_torch.frontdoor import FrontDoorClient, protocol
+    first = {}
+    c = await FrontDoorClient.open(
+        host, port, tenant="probe", codec=SERVE_CODEC,
+        on_tokens=lambda rid, toks: first.setdefault(rid, time.perf_counter()))
+    client, engine = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        rid = await c.submit(p, max_new=DOOR_NEW)
+        out = await c.result(rid)
+        client.append(first[rid] - t0)
+        engine.append(out["ttft_s"])
+    rtt = []
+    for _ in range(DOOR_STATS_CALLS):
+        t0 = time.perf_counter()
+        await c.stats()
+        rtt.append(time.perf_counter() - t0)
+    await c.close()
+    hdr, payload = protocol.pack_array(np.arange(SERVE_NEW, dtype=np.int32))
+    header = {"rid": 0, "ttft_s": 0.5, "ttlt_s": 1.5, "evictions": 0,
+              "accepted": 0, "rejected": 0, "rollbacks": 0, **hdr}
+    t0 = time.perf_counter()
+    for _ in range(DOOR_FRAME_CALLS):
+        protocol.decode_frame(protocol.encode_frame(
+            protocol.MsgType.RESULT, header, payload, seq=1)[4:])
+    frame_us = (time.perf_counter() - t0) / DOOR_FRAME_CALLS * 1e6
+    added = [a - b for a, b in zip(client, engine)]
+    return {"client_ttft_ms": [t * 1e3 for t in client],
+            "engine_ttft_ms": [t * 1e3 for t in engine],
+            "added_ttft_ms": [t * 1e3 for t in added],
+            "stats_rtt_ms_median": statistics.median(rtt) * 1e3,
+            "result_frame_codec_us": frame_us}
+
+
+def door_tenants_drive(eng, prompts):
+    """16b: the probe, then DOOR_TENANTS tenants of DOOR_REQUESTS
+    concurrent ``generate`` calls each against ``TenantPolicy(max_inflight
+    = DOOR_INFLIGHT)`` and ``max_queue_depth = DOOR_QUEUE``, with
+    ``auto_tick=True`` and the server's default heartbeats: every request
+    completes through BUSY retries."""
+    from repro_torch.frontdoor import (AdmissionController, FrontDoorClient,
+                                       FrontDoorServer, TenantPolicy)
+    reqs, ticks = door_hooks(eng)
+
+    async def tenant(host, port, name, ps):
+        c = await FrontDoorClient.open(host, port, tenant=name, codec=SERVE_CODEC)
+        outs = await asyncio.gather(*(c.generate(p, max_new=DOOR_NEW)
+                                      for p in ps))
+        await c.close()
+        return outs
+
+    async def go():
+        server = FrontDoorServer(eng, admission=AdmissionController(
+            max_queue_depth=DOOR_QUEUE,
+            default_policy=TenantPolicy(max_inflight=DOOR_INFLIGHT)))
+        host, port = await server.start()
+        probe = await door_probe(host, port, prompts[:DOOR_PROBES])
+        rest = prompts[DOOR_PROBES:]
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(
+            tenant(host, port, f"tenant-{t}",
+                   rest[t * DOOR_REQUESTS:(t + 1) * DOOR_REQUESTS])
+            for t in range(DOOR_TENANTS)))
+        wall = time.perf_counter() - t0
+        st = server.stats()
+        await server.stop()
+        return server, outs, probe, wall, st
+
+    server, outs, probe, wall, st = asyncio.run(go())
+    what = "phase 16b"
+    books = door_books(what, st, server, ticks)
+    check(all(len(o["tokens"]) == DOOR_NEW and o["streamed"] == o["tokens"]
+              for t in outs for o in t), f"{what}: an output is short or its "
+          "TOKENS differ from it")
+    busy = sum(t["busy_rejections"] for t in st["tenants"].values())
+    check(busy > 0, f"{what}: no SUBMIT was shed with BUSY")
+    check(all(t["disconnects"] == 0 for t in st["tenants"].values()),
+          f"{what}: a tenant was disconnected: {st['tenants']}")
+    tenants = {name: {"requests": t["requests"], "busy": t["busy_rejections"],
+                      "ttft_p50_ms": t["ttft_s"]["p50"] * 1e3,
+                      "ttft_p99_ms": t["ttft_s"]["p99"] * 1e3,
+                      "tokens_per_s_p50": t["tokens_per_s"]["p50"],
+                      "bytes_in": t["bytes_in"], "bytes_out": t["bytes_out"]}
+               for name, t in st["tenants"].items()}
+    door = {**books, "busy": busy, "tenants": tenants, "probe": probe,
+            "tenants_wall_s": wall,
+            "tenants_tokens_per_s": DOOR_TENANTS * DOOR_REQUESTS * DOOR_NEW / wall}
+    return [reqs[u] for u in sorted(reqs)], {"door": door}
+
+
+def door_chaos_drive(faults):
+    """16c: the selfcheck's sequential run (3 tenants, one request in
+    flight at a time) with ``faults``, the door's engine at phase 4's
+    settings, DOOR_CHAOS_REQUESTS requests a tenant of DOOR_PROMPT +
+    DOOR_NEW."""
+    from repro_torch.frontdoor import selfcheck
+
+    def drive(eng, prompts):
+        reqs, ticks = door_hooks(eng)
+        got, server = asyncio.run(selfcheck._sequential_run(
+            eng, DOOR_CHAOS_REQUESTS, faults, codec=SERVE_CODEC,
+            prompt_len=DOOR_PROMPT, max_new=DOOR_NEW))
+        st = got.pop("_stats")
+        tokens = {name: got[name] for name, _ in selfcheck.CHAOS_TENANTS}
+        # the last tenant's STATS, taken with its requests delivered; this
+        # run's heartbeats are the selfcheck's (0.2 s x 10), and a tick past
+        # them, or a BYE lost to the faults, only costs a detach and resume
+        books = door_books("phase 16c", st, server, ticks, strict=False)
+        recovered = {k: sum(t[k] for t in st["tenants"].values())
+                     for k in ("retransmits", "nacks", "resumes", "disconnects")}
+        door = {**books, "tokens": tokens, "recovered": recovered,
+                "streamed": got["_streamed"],
+                "injected": None if faults is None else repr(faults)}
+        return [reqs[u] for u in sorted(reqs)], {"door": door}
+    return drive
+
+
+def door_cli() -> dict:
+    """16e: ``python -m repro_torch.launch.serve --arch deepseek-7b
+    --reduced --frontdoor --port 0 --codec "c3sl:R=4|int8"`` on the card:
+    its address line, CLI_REQUESTS requests and a STATS through a port
+    client, then SIGINT: its closing line and exit code 0.  A timer kills
+    it past DOOR_CLI_TIMEOUT_S."""
+    import signal
+    import threading
+    from repro_torch.frontdoor import FrontDoorClient
+    spec = "c3sl:R=4|int8"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           SERVE_ARCH, "--reduced", "--frontdoor", "--port", "0", "--codec", spec]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(ROOT),
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    killer = threading.Timer(DOOR_CLI_TIMEOUT_S, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        up = time.perf_counter() - t0
+        found = re.search(r"front door on ([\d.]+):(\d+) ", line)
+        check(found is not None, f"phase 16e: no address line: {line!r} "
+              f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+
+        async def go():
+            c = await FrontDoorClient.open(found[1], int(found[2]),
+                                           tenant="cli", codec=spec)
+            outs = [await c.generate([1, 2, 3, 4 + i], max_new=8)
+                    for i in range(DOOR_CLI_REQUESTS)]
+            stats = await c.stats()
+            await c.close()
+            return outs, stats
+
+        outs, stats = asyncio.run(asyncio.wait_for(go(), DOOR_CLI_TIMEOUT_S))
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    closing = re.search(r"\[serve\] front door stopped; engine stats: "
+                        r"dispatches=(\d+) .*", out)
+    check(proc.returncode == 0 and closing is not None,
+          f"phase 16e: exit {proc.returncode}, closing line "
+          f"{closing[0] if closing else None!r}; stderr {err[-2000:]}")
+    check([len(o["tokens"]) for o in outs] == [8] * DOOR_CLI_REQUESTS
+          and stats["tenants"]["cli"]["requests"] == DOOR_CLI_REQUESTS
+          and int(closing[1]) == stats["engine"]["dispatches"] > 0,
+          f"phase 16e: outputs {[len(o['tokens']) for o in outs]}, STATS "
+          f"{stats['tenants'].get('cli')}, closing {closing[0]!r}")
+    return {"address_line": line.strip(), "closing_line": closing[0],
+            "returncode": proc.returncode, "seconds_to_address": up,
+            "seconds": time.perf_counter() - t0,
+            "codec": stats["engine"]["codec"],
+            "codec_execution_mode": stats["engine"]["codec_execution_mode"]}
+
+
+def frontdoor_phase(dev, rk) -> dict:
+    """Phase 16 (see the module docstring): deepseek-7b at full width and
+    depth through the door at phase 4's settings.  Each engine run is a
+    ``serve_run`` driven through the door, held by ``check_family_run``."""
+    import torch
+    from repro_torch.frontdoor import selfcheck
+    from repro_torch.serving.spec import SpecConfig
+    t0 = time.perf_counter()
+    cfg, params = serve_model(torch.float32, dev)
+    runs = {}
+    _, runs["a_staged"] = serve_run(params, cfg, "kernel", SERVE_REQUESTS,
+                                    SERVE_NEW, drive=door_staged_drive(2),
+                                    gaps=True)
+    a = runs["a_staged"]
+    a["flips"] = near_tie_flips("phase 16a", a, rk, a)
+    free_cuda()
+    _, runs["b_tenants"] = serve_run(
+        params, cfg, "kernel", DOOR_PROBES + DOOR_TENANTS * DOOR_REQUESTS,
+        DOOR_NEW, drive=door_tenants_drive, prompt_len=DOOR_PROMPT)
+    free_cuda()
+    for key, faults in (("c_fault_free", None), ("c_chaos", selfcheck.chaos_plan())):
+        _, runs[key] = serve_run(
+            params, cfg, "kernel", len(selfcheck.CHAOS_TENANTS) * DOOR_CHAOS_REQUESTS,
+            DOOR_NEW, drive=door_chaos_drive(faults), prompt_len=DOOR_PROMPT)
+        free_cuda()
+    free, chaos = runs["c_fault_free"]["door"], runs["c_chaos"]["door"]
+    check(chaos["tokens"] == free["tokens"], "phase 16c: chaos tokens differ "
+          f"from the fault-free run's: {chaos['tokens']} vs {free['tokens']}")
+    recovered = sum(chaos["recovered"][k] for k in ("retransmits", "nacks",
+                                                    "resumes"))
+    check(recovered > 0, f"phase 16c: nothing recovered: {chaos['recovered']}")
+    spec = dict(codec=SPEC_LINK, spec_decode=SpecConfig(k=SPEC_K, draft_head="tied"))
+    _, runs["d_spec"] = serve_run(params, cfg, "kernel", DOOR_SPEC_REQUESTS,
+                                  SERVE_NEW, drive=door_staged_drive(
+                                      1, draft=SPEC_DRAFT_PIN), **spec)
+    d = runs["d_spec"]
+    d["flips"] = near_tie_flips("phase 16d", d, a, a)
+    check(d["spec_rounds"] > 0 and d["k_served"] == {SPEC_K: d["spec_rounds"]},
+          f"phase 16d: rounds {d['spec_rounds']}, k {d['k_served']}")
+    del params
+    free_cuda()
+    for rec in runs.values():
+        check_family_run(rec, cfg)
+    cli = door_cli()
+    return {"runs": runs, "cli": cli, "seconds": time.perf_counter() - t0}
+
+
+def print_frontdoor(card, res):
+    runs = res["runs"]
+    print(f"phase 16: the front door, {SERVE_ARCH} full width, "
+          f"{SERVE_CODEC}, kernel read, loopback", flush=True)
+    for key, r in runs.items():
+        d = r["door"]
+        print(f"  door {key}: {r['completed']} requests of {r['prompt_len']}+"
+              f"{r['max_new']}, {r['decode_steps']} decode steps, "
+              f"{r['prefill_chunks']} prefill chunks; circconv "
+              f"{r['shape_launches']}; paged "
+              f"{ {k: r['launches'][k] for k in ('paged_attention', 'paged_attention_quant')} }; "
+              f"wire {r['wire_bytes_fwd']:,d} B fwd + {r['wire_bytes_draft']:,d} B "
+              f"draft (exact); {d['ticks']} ticks, longest "
+              f"{d['longest_tick_s']:.3f} s", flush=True)
+        if "flips" in r:
+            f = r["flips"]
+            print(f"    tokens vs the direct run: {f['differing']} requests "
+                  f"differ, {len(f['flips'])} near-tie flips {f['flips']}, "
+                  f"{len(f['cascades'])} group cascades", flush=True)
+        if key == "d_spec":
+            print(f"    spec rounds {r['spec_rounds']}, RESULT counters "
+                  f"{d['result_spec']} = the engine's; a client pinning "
+                  f"{WRONG_DRAFT!r} refused: {d['refused'][:90]}", flush=True)
+        if "recovered" in d:
+            print(f"    recovery {d['recovered']}, {d['streamed']} tokens "
+                  "streamed", flush=True)
+    b = runs["b_tenants"]["door"]
+    print(f"  door b_tenants: BUSY {b['busy']}, longest tick "
+          f"{b['longest_tick_s']:.3f} s (deadline {b['heartbeat_deadline_s']} "
+          f"s), sessions {b['sessions']}", flush=True)
+    for name, t in b["tenants"].items():
+        print(f"time [{card}] door tenant {name}: {t['requests']} requests, "
+              f"BUSY {t['busy']}, TTFT p50 {t['ttft_p50_ms']:.1f} ms p99 "
+              f"{t['ttft_p99_ms']:.1f} ms (engine side), decode "
+              f"{t['tokens_per_s_p50']:.1f} tok/s p50 a request, bytes in "
+              f"{t['bytes_in']:,d} out {t['bytes_out']:,d}", flush=True)
+    p = b["probe"]
+    print(f"time [{card}] door probe, one request at a time ({DOOR_PROMPT}+"
+          f"{DOOR_NEW}): client TTFT "
+          f"{', '.join(f'{t:.1f}' for t in p['client_ttft_ms'])} ms, engine "
+          f"TTFT {', '.join(f'{t:.1f}' for t in p['engine_ttft_ms'])} ms, the "
+          f"door's added {', '.join(f'{t:.2f}' for t in p['added_ttft_ms'])} "
+          f"ms; STATS round trip {p['stats_rtt_ms_median']:.3f} ms (median); "
+          f"a RESULT frame encoded and decoded {p['result_frame_codec_us']:.1f} "
+          "us (host)", flush=True)
+    print(f"time [{card}] door b_tenants {DOOR_TENANTS}x{DOOR_REQUESTS}x("
+          f"{DOOR_PROMPT}+{DOOR_NEW}): {b['tenants_wall_s']:.3f} s, "
+          f"{b['tenants_tokens_per_s']:.1f} generated tok/s", flush=True)
+    for key, r in runs.items():
+        print(f"time [{card}] door {key}: {r['wall_s']:.3f} s, "
+              f"{r['tokens_per_s']:.1f} generated tok/s, mean TTFT "
+              f"{r['mean_ttft_ms']:.1f} ms (engine side), longest tick "
+              f"{r['door']['longest_tick_s']:.3f} s", flush=True)
+    c = res["cli"]
+    print(f"  door CLI: {c['address_line']!r} after "
+          f"{c['seconds_to_address']:.1f} s; {DOOR_CLI_REQUESTS} requests and "
+          f"STATS served ({c['codec']}, {c['codec_execution_mode']}); "
+          f"{c['closing_line']!r}, exit {c['returncode']}", flush=True)
+    print(f"front door: phase seconds {res['seconds']:.1f}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3579,6 +4044,12 @@ def main() -> int:
     lap("serving_ii")
     print_serve_family(card, serve_ii)
 
+    print("phase 16: the networked front door over loopback", flush=True)
+    free_cuda()
+    door = frontdoor_phase(dev, rk)
+    lap("frontdoor")
+    print_frontdoor(card, door)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -3643,7 +4114,7 @@ def main() -> int:
 
     lm_runs = [lm, qwen, *families.values()]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
-                              serve_ii) for r in f["runs"].values()]
+                              serve_ii, door) for r in f["runs"].values()]
     path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *serve_runs]
     one_pass_runs = [main_run, cp, *serve_runs]
     launches = {name: counted(name, runs) for name, runs in (
@@ -3724,7 +4195,7 @@ def main() -> int:
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
-        "serving_ii": serve_ii,
+        "serving_ii": serve_ii, "frontdoor": door,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

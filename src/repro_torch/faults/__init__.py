@@ -9,8 +9,8 @@ explicit step lists, every draw replayable).  It installs into
 ``repro_torch.transport.Channel`` (payload-level erasures inside train
 loops, resolved against a :class:`RecoveryPolicy` by
 :func:`negotiate_payload`); :meth:`FaultPlan.frame_events` draws the
-wire-level frame faults the reference's front door injects (the front door
-itself is not ported yet).
+wire-level frame faults the front door injects
+(``repro_torch.frontdoor.stream.FrameStream``).
 
 :class:`ChannelErasure` is the typed "the channel ate it" error both
 layers surface instead of decoding garbage.

@@ -20,8 +20,8 @@ The plan installs at two layers:
   ERASURES — a keep-mask over the payload that the mask-aware HRR decode
   (``decode_masked``) renormalizes over, never as garbage activations.
 
-* **wire level** (the reference's ``repro.frontdoor.stream.FrameStream``;
-  the front door is not ported yet): faults apply
+* **wire level** (``repro_torch.frontdoor.stream.FrameStream``, as the
+  reference's ``repro.frontdoor.stream.FrameStream``): faults apply
   to individual frames as they are written — dropped from the wire,
   byte-flipped (caught by the frame CRC32), truncated (length prefix
   fixed up so the stream stays in sync but the CRC fails), duplicated,

@@ -1,5 +1,6 @@
-"""Batched serving driver: the lockstep decode loop, or the continuous-
-batching engine with chunked prefill (--engine).
+"""Batched serving driver: the lockstep decode loop, the continuous-
+batching engine with chunked prefill (--engine), or that engine behind the
+networked front door (--frontdoor).
 
 Port of ``repro/launch/serve.py`` for what is ported.  Runs on the card
 unless ``--device cpu`` is given; weights are random, drawn from
@@ -29,8 +30,14 @@ unless ``--device cpu`` is given; weights are random, drawn from
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         --reduced --engine --device cpu --greedy --draft-k 4 --draft-head copy
 
-Not ported yet: the front door and ``--sanitize`` (ROADMAP.md slices 6
-and 7).
+    # the multi-tenant front door (repro_torch.frontdoor) over the engine,
+    # until interrupted: prints "front door on host:port", then clients
+    # connect with repro_torch.frontdoor.FrontDoorClient (or the
+    # reference's: the frames are the same bytes)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+        --reduced --frontdoor --port 0 --device cpu --codec "c3sl:R=4|int8"
+
+Not ported yet: ``--sanitize`` (ROADMAP.md slice 7).
 """
 from __future__ import annotations
 
@@ -102,9 +109,10 @@ def _prompts(args, vocab: int) -> list:
     return rng.randint(0, vocab, (args.requests, args.prompt_len)).tolist()
 
 
-def _run_engine(cfg, params, args):
-    """Continuous batching: chunked prefill + device-resident slot state."""
-    from repro_torch.serving.engine import BatchedEngine, Request
+def _build_engine(cfg, params, args):
+    """The continuous-batching engine the --engine and --frontdoor modes
+    serve, from the CLI's flags."""
+    from repro_torch.serving.engine import BatchedEngine
     codec = None
     if args.codec != "none":
         codec = _serving_codec(args.codec, cfg.d_model, args.R, args.batch)
@@ -126,6 +134,13 @@ def _run_engine(cfg, params, args):
                         preemption=args.preemption, kv_read=args.kv_read,
                         spec_decode=spec_decode)
     _pin(eng.codec, args.pin_R)
+    return eng
+
+
+def _run_engine(cfg, params, args):
+    """Continuous batching: chunked prefill + device-resident slot state."""
+    from repro_torch.serving.engine import Request
+    eng = _build_engine(cfg, params, args)
     for u, p in enumerate(_prompts(args, cfg.vocab_size)):
         eng.submit(Request(uid=u, prompt=p, max_new_tokens=args.max_new))
     t0 = time.time()
@@ -173,6 +188,45 @@ def _run_engine(cfg, params, args):
           f"mean TTFT {sum(ttfts) / max(len(ttfts), 1) * 1e3:.1f}ms; "
           f"dispatches {eng.stats['dispatches']}")
     print("sample output:", done[0].out[:16])
+
+
+def _run_frontdoor(cfg, params, args):
+    """Serve the engine over the multi-tenant front door (TCP loopback by
+    default) until interrupted.  Clients connect with
+    ``repro_torch.frontdoor.FrontDoorClient``, the reference's client, or
+    anything speaking the frame protocol (the reference's
+    ``src/repro/frontdoor/README.md``)."""
+    import asyncio
+
+    from repro_torch.frontdoor import (AdmissionController, FrontDoorServer,
+                                       TenantPolicy)
+    eng = _build_engine(cfg, params, args)
+    server = FrontDoorServer(
+        eng, host=args.host, port=args.port,
+        admission=AdmissionController(
+            max_queue_depth=args.max_queue_depth,
+            default_policy=TenantPolicy(max_inflight=args.max_inflight)))
+
+    async def serve():
+        host, port = await server.start()
+        spec = eng.codec.spec() if eng.codec is not None else "none"
+        print(f"[serve] front door on {host}:{port} arch={cfg.name} "
+              f"slots={args.batch} kv={args.kv_layout} codec={spec} "
+              f"preemption={args.preemption} device={args.device} "
+              "(ctrl-c to stop)", flush=True)
+        try:
+            await asyncio.Event().wait()
+        finally:
+            await server.stop(drain=False)
+
+    try:
+        asyncio.run(serve())
+    except KeyboardInterrupt:
+        pass
+    print(f"[serve] front door stopped; engine stats: "
+          f"dispatches={eng.stats['dispatches']} "
+          f"evictions={eng.stats['evictions']} "
+          f"wire fwd {eng.stats['wire_bytes_fwd']:,d} B", flush=True)
 
 
 def _run_lockstep(cfg, params, args):
@@ -295,7 +349,8 @@ def main(argv=None):
                          "(0 = prefill admitted prompts to completion)")
     ap.add_argument("--draft-k", type=int, default=None,
                     help="speculative decoding: positions per verify round "
-                         "(1 input + k-1 drafts; --engine, needs --greedy)")
+                         "(1 input + k-1 drafts; --engine or --frontdoor, "
+                         "needs --greedy)")
     ap.add_argument("--draft-spec", default=None,
                     help="draft feedback channel codec spec, e.g. "
                          "'c3sl:R=8|int8' ('none' = raw float32 feedback); "
@@ -312,6 +367,19 @@ def main(argv=None):
                          "re-queued for re-prefill) instead of FIFO-blocking "
                          "when the queue head cannot be admitted (chunked "
                          "prefill only)")
+    ap.add_argument("--frontdoor", action="store_true",
+                    help="serve the engine over the multi-tenant TCP front "
+                         "door (repro_torch.frontdoor) instead of running a "
+                         "local request batch")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="front door bind address")
+    ap.add_argument("--port", type=int, default=8787,
+                    help="front door port (0 = ephemeral)")
+    ap.add_argument("--max-inflight", type=int, default=8,
+                    help="per-tenant in-flight request cap (front door)")
+    ap.add_argument("--max-queue-depth", type=int, default=64,
+                    help="server-wide backlog cap before BUSY shedding "
+                         "(front door)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -320,7 +388,9 @@ def main(argv=None):
     if args.quant_kv:
         cfg = dataclasses.replace(cfg, kv_cache_quant=True)
     params = lm_lib.init_lm_params(args.seed, cfg, device=args.device)
-    if args.engine:
+    if args.frontdoor:
+        _run_frontdoor(cfg, params, args)
+    elif args.engine:
         _run_engine(cfg, params, args)
     else:
         _run_lockstep(cfg, params, args)

@@ -30,6 +30,19 @@ from repro_torch.interop import params_from_numpy, tree_leaves, tree_map  # noqa
 from repro_torch.models import lm as tlm  # noqa: E402
 from test_torch_lm_train import NEW_FAMILIES, _assert_parity, _grads  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Under the suite's parallel workers torch's intra-op threads
+    oversubscribe the cores, so this module runs on one (on an 8-core
+    CPU, this file and `test_torch_serving_engine_stateful.py` on six
+    workers took 371 s at the default thread count, 85 s on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # The recurrent families' float32 gradients sit further from exact, in both
 # packages: RWKV-6's per-head group norm divides by each head's standard
 # deviation, and the hybrid's 14 Mamba layers run the scan as a

@@ -1,0 +1,90 @@
+"""The port's serve CLI in front-door mode on the CPU, and what the front
+door does without JAX: ``python -m repro_torch.launch.serve --frontdoor``
+(reduced deepseek-7b) announces its address, serves a port client, and
+on SIGINT stops cleanly with its closing line; the selfcheck's
+``--sanitize`` raises ``NotImplementedError`` naming ROADMAP slice 7; the
+front door's modules import, and a loopback request is served, with jax
+and the JAX package unimportable."""
+import asyncio
+import os
+import re
+import signal
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.frontdoor import FrontDoorClient, selfcheck  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+# one intra-op thread: the subprocesses run many small ops, and the suite's
+# parallel workers would oversubscribe the cores
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+
+def test_serve_cli_frontdoor_serves_then_stops_on_sigint():
+    spec = "c3sl:R=4|int8"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "deepseek-7b", "--reduced", "--frontdoor", "--port", "0", "--device",
+         "cpu", "--greedy", "--codec", spec],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=ENV,
+        cwd=str(ROOT))
+    try:
+        line = proc.stdout.readline()
+        found = re.search(r"front door on ([\d.]+):(\d+) arch=deepseek-7b", line)
+        assert found, (line, proc.stderr.read() if proc.poll() is not None else "")
+        host, port = found[1], int(found[2])
+
+        async def go():
+            client = await FrontDoorClient.open(host, port, tenant="cli",
+                                                codec=spec)
+            outs = [await client.generate([1, 2, 3, 4 + i], max_new=4)
+                    for i in range(2)]
+            stats = await client.stats()
+            await client.close()
+            return outs, stats
+
+        outs, stats = asyncio.run(asyncio.wait_for(go(), 120))
+        assert [len(o["tokens"]) for o in outs] == [4, 4]
+        assert stats["tenants"]["cli"]["requests"] == 2
+        assert stats["engine"]["codec"] == "c3sl:R=4,D=256|int8"
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    closing = re.search(r"front door stopped; engine stats: dispatches=(\d+) "
+                        r"evictions=0 wire fwd ([\d,]+) B", out)
+    assert closing, out
+    assert int(closing[1]) == stats["engine"]["dispatches"] > 0
+    assert int(closing[2].replace(",", "")) == stats["engine"]["wire_bytes_fwd"] > 0
+
+
+def test_selfcheck_sanitize_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
+        selfcheck.main(["--sanitize", "--device", "cpu"])
+
+
+_BLOCK = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def test_frontdoor_serves_with_jax_absent():
+    code = _BLOCK + (
+        "from repro_torch.frontdoor import selfcheck\n"
+        "selfcheck.main(['--requests', '1', '--device', 'cpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=ENV, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[selfcheck] PASS" in out.stdout

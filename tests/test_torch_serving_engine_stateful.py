@@ -30,6 +30,19 @@ from repro_torch.configs import base as tconfigs  # noqa: E402
 from repro_torch.interop import params_from_numpy, tree_leaves  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Under the suite's parallel workers torch's intra-op threads
+    oversubscribe the cores, so this module runs on one (on an 8-core
+    CPU, this file and `test_torch_lm_train_families.py` on six
+    workers took 371 s at the default thread count, 85 s on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JAMBA, RWKV = "jamba-1.5-large-398b", "rwkv6-1.6b"
 STAT_KEYS = ("dispatches", "decode_steps", "prefill_chunks",
              "payload_wire_bytes", "wire_bytes_fwd", "wire_bytes_bwd")
