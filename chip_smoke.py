@@ -344,6 +344,29 @@ Phases (any failure exits non-zero, and no result line is printed):
       --reduced --frontdoor --port 0 --codec "c3sl:R=4|int8"`` as a
       subprocess on the card: its address line, 3 requests and STATS
       through a port client, SIGINT, its closing line and exit code 0.
+17. The 2-stage pod pipeline (``launch.train.run_pipeline`` over
+   ``transport.make_pod_pipeline_loss_fn``), after ``free_cuda()``: phase
+   7's ``deepseek-7b`` (full width, 8 of 30 layers, the stages 4 + 4
+   superblocks), B 16 in 4 microbatches of 4, S 128,
+   ``c3sl:R=4,backend=pallas`` on the stage channel: one group a
+   microbatch, payload (1, 524288), the four-step kernels at (1, 4,
+   524288) (held against the float64 oracle and timed in phases 2 and 6).
+   a. Step 0 at depth 1: the loss (1e-6 relative) and every gradient leaf
+      (1e-4 of its max) against the per-microbatch composition (embed ->
+      stage 0 -> encode/decode -> stage 1 -> head, meaned) and against the
+      single-program ``lm_loss`` on the whole batch with the same keys;
+      8 + 8 launches, all at (1, 4, 524288).
+   b. Step 0 at depth 2: the loss and every gradient leaf bitwise depth
+      1's.
+   c-e. ``run_pipeline`` at depths 1 and 2, 3 steps each: finite losses,
+      equal across depths within 1e-6 relative; 8 bind and 8 unbind
+      launches a step, all ``"fft4"`` at (1, 4, 524288); the codec's
+      wire bytes (analytic, ``split_comm_bytes``) 2,097,152 a microbatch
+      and 8,388,608 a step each way (phase 7's); the call record, as the
+      loop saw it: 4 payloads of 2,097,152 B over 4 + depth steps, wire
+      mode ``same-device``; the step time (CUDA events, the median of 3, host
+      included), a ``torch.profiler`` breakdown of 2 steps and the peak
+      memory, beside phase 7's single-program step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -404,7 +427,8 @@ MIXED_SHAPES = MIXED_SERVE_SHAPES + [(2, 3, 12), (3, 2, 160), (2, 9, 960),
 # the four-step kernels (D past 16384): against the plain version (its
 # gather in chunks there) at five shapes, three of them mixed radix, and at
 # the LM training paths' shapes (G = B/R = 4, R 4, D = S * d_model at S 128:
-# deepseek-7b, qwen2.5-32b, mistral-large-123b), where the O(D^2) plain
+# deepseek-7b, qwen2.5-32b, mistral-large-123b, and the other families'; G
+# 1 in phase 17's pipeline), where the O(D^2) plain
 # version would gather terabytes, against a float64 torch.fft oracle
 # computed in the phase (never on the path), as at (128, 4, 12288)
 FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440),
@@ -413,8 +437,10 @@ FFT4_SHAPES = [(1, 1, 32768), (2, 4, 65536), (1, 2, 20480), (2, 4, 61440),
 # 8 keys a pass B chunk holds at 262144 = 512 x 512, and 18000 = 180 x 100,
 # a divisor split with 4-column tiles
 FFT4_EDGE_SHAPES = [(1, 9, 262144), (2, 3, 18000)]
+# phase 17's pipeline: deepseek-7b's cut, one group a microbatch of 4 (G 1)
+PIPE_SHAPE = (1, 4, 524288)
 LM_SHAPES = [(4, 4, 524288), (4, 4, 655360), (4, 4, 1572864),
-             (4, 4, 262144), (4, 4, 131072), (4, 4, 32768)]
+             (4, 4, 262144), (4, 4, 131072), (4, 4, 32768), PIPE_SHAPE]
 LM_SHAPE = LM_SHAPES[0]
 ORACLE_SHAPES = LM_SHAPES + FFT4_EDGE_SHAPES + [(128, 4, 12288)]
 # the direct kernels, called explicitly at the main-path shapes
@@ -500,6 +526,12 @@ LM_PROFILED_STEPS = 2
 # and two AdamW moments (56.1 GB at 4 layers, 263 GB at the full 64) fit
 # the card; the codec after layer 2, D = 128 * 5120 = 655360, G = 4, on the
 # mixed-radix four-step kernels
+# phase 17, the 2-stage pod pipeline: phase 7's model, batch and codec, the
+# stages 4 + 4 superblocks, B 16 in 4 microbatches of 4 (R 4: one group a
+# microbatch, PIPE_SHAPE), at async depths 1 and 2
+PIPE_MICROBATCHES = 4
+PIPE_DEPTHS = (1, 2)
+
 QWEN_ARCH = "qwen2.5-32b"
 QWEN_LAYERS = 4
 QWEN_SHAPE = (4, 4, 655360)
@@ -3480,14 +3512,14 @@ def lm_config(arch=LM_ARCH, layers=LM_LAYERS, small=False):
     return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
 
 
-def lm_args(ckpt_dir, arch=LM_ARCH):
+def lm_args(ckpt_dir, arch=LM_ARCH, extra=()):
     """``launch/train.py``'s flags for the run: the CLI's own parser;
-    ``ckpt_dir`` None writes no checkpoint."""
+    ``ckpt_dir`` None writes no checkpoint; ``extra``, more flags."""
     from repro_torch.launch import train
     return train.build_parser().parse_args([
         "--arch", arch, "--steps", str(LM_STEPS), "--batch", str(LM_BATCH),
         "--seq", str(LM_SEQ), "--codec", LM_CODEC, "--seed", str(SEED),
-        "--log-every", "1", "--device", "cuda"]
+        "--log-every", "1", "--device", "cuda", *extra]
         + ([] if ckpt_dir is None else ["--ckpt-dir", str(ckpt_dir)]))
 
 
@@ -3620,6 +3652,34 @@ def lm_parity(params, cfg, args, dev, frontend=None) -> dict:
     return out
 
 
+def train_step_times(one, timed_steps) -> tuple:
+    """(the step time: CUDA events around single calls of ``one``, the
+    median of ``timed_steps``, host included; a ``torch.profiler``
+    breakdown over LM_PROFILED_STEPS calls: device time, idle share, the
+    circconv kernels' share, the top kernels; None where the profiler sees
+    no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step_ms = cuda_ms(one, warmup=0, calls=1, reps=timed_steps, hide_host=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILED_STEPS
+    rows = device_rows(prof, LM_PROFILED_STEPS)
+    busy = sum(r[1] for r in rows)
+    circ = sum(r[1] for r in rows if "columns_kernel" in r[0] or "rows_kernel" in r[0])
+    return step_ms, None if not busy else {
+        "device_ms_per_step": busy, "wall_ms_per_step": wall_ms,
+        "idle_share_profiled": 1 - busy / wall_ms,
+        "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
+        "device_ops_per_step": sum(r[2] for r in rows),
+        "circconv_ms_per_step": circ, "circconv_share": circ / busy,
+        "top": [{"name": n[:90], "ms_per_step": t, "calls_per_step": c}
+                for n, t, c in rows[:10]]}
+
+
 def lm_training(dev, cfg, shape, *, ckpt=False, timed_steps=LM_TIMED_STEPS,
                 label="full width") -> dict:
     """``cfg`` (``label`` says its size): (a) step-0 parity; (b)
@@ -3635,7 +3695,6 @@ def lm_training(dev, cfg, shape, *, ckpt=False, timed_steps=LM_TIMED_STEPS,
     import shutil
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.interop import tree_leaves
@@ -3711,23 +3770,7 @@ def lm_training(dev, cfg, shape, *, ckpt=False, timed_steps=LM_TIMED_STEPS,
     def one():
         step(out["params"], out["opt_state"], batch, probe)
 
-    step_ms = cuda_ms(one, warmup=0, calls=1, reps=timed_steps, hide_host=False)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(LM_PROFILED_STEPS):
-            one()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILED_STEPS
-    rows = device_rows(prof, LM_PROFILED_STEPS)
-    busy = sum(r[1] for r in rows)
-    circ = sum(r[1] for r in rows if "columns_kernel" in r[0] or "rows_kernel" in r[0])
-    prof_out = None if not busy else {
-        "device_ms_per_step": busy, "wall_ms_per_step": wall_ms,
-        "idle_share_profiled": 1 - busy / wall_ms,
-        "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
-        "circconv_ms_per_step": circ, "circconv_share": circ / busy,
-        "top": [{"name": n[:90], "ms_per_step": t, "calls_per_step": c}
-                for n, t, c in rows[:10]]}
+    step_ms, prof_out = train_step_times(one, timed_steps)
     del out, step, batch, frontend
     free_cuda()
     return {"arch": arch, "label": label, "layers": cfg.num_layers,
@@ -3785,6 +3828,265 @@ def print_lm(card, lm):
               f"({lp['circconv_share']:.5f})", flush=True)
         for r in lp["top"]:
             print(f"  {r['ms_per_step']:.3f} ms x{r['calls_per_step']}  {r['name']}")
+
+
+# --------------------------------------------------------------------------
+# phase 17: the 2-stage pod pipeline
+# --------------------------------------------------------------------------
+
+def pipeline_args(depth: int):
+    """``launch/train.py``'s flags for a pipeline run at ``depth``: phase
+    7's, with ``--pipeline``, PIPE_MICROBATCHES microbatches and
+    ``--async-depth``."""
+    return lm_args(None, extra=("--pipeline", "--microbatches",
+                                str(PIPE_MICROBATCHES), "--async-depth", str(depth)))
+
+
+def as_lm_tree(tree):
+    """A pipeline tree's leaves in the LM's tree (the stage axis merged)."""
+    from repro_torch.interop import tree_map
+    return {"embed": tree["embed"]["embed"],
+            "stack": tree_map(lambda a: a.reshape(-1, *a.shape[2:]), tree["blocks"]),
+            "final_norm": tree["head"]["final_norm"], "head": tree["head"]["head"]}
+
+
+def pipeline_parity(cfg, dev) -> dict:
+    """Step 0's loss and gradients through the pipeline at depth 1 (the
+    launches counted), against (i) the per-microbatch composition (embed ->
+    stage 0 -> encode/decode -> stage 1 -> head, each microbatch with its
+    own labels, meaned), (ii) the single-program ``lm_loss`` on the whole
+    batch with the same keys (cut after superblock num_superblocks // 2,
+    the R-groups the same rows), each at phase 7's tolerances (loss 1e-6
+    relative, every gradient leaf 1e-4 of its max); (iii) the pipeline at
+    depth 2: the loss and every gradient leaf bitwise."""
+    import torch
+    from repro_torch.interop import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.transport import make_pod_pipeline_loss_fn
+
+    args = pipeline_args(1)
+    M, mb = PIPE_MICROBATCHES, LM_BATCH // PIPE_MICROBATCHES
+    full = lm_lib.init_lm_params(args.seed, cfg, device=dev)
+    codec, cp = train.make_codec(LM_CODEC, args.seq * cfg.d_model, max_R=mb,
+                                 device=dev)
+    params = train.pipeline_params(full, cp)
+    b = lm_batch(cfg, args, 0, dev)
+    batch = {"x": b["tokens"], "y": b["labels"]}
+    embed_fn, stage_fn, head_loss_fn = fns = lm_lib.make_pipeline_fns(cfg)
+
+    def value_and_grad(fn, tree):
+        tp = tree_map(lambda t: t.detach().requires_grad_(), tree)
+        loss = fn(tp)
+        got = torch.autograd.grad(loss, tree_leaves(tp), allow_unused=True,
+                                  materialize_grads=True)
+        return float(loss.detach()), tree_unflatten(tree, list(got))
+
+    def pipeline(depth):
+        lf = make_pod_pipeline_loss_fn(*fns, codec, num_microbatches=M,
+                                       async_depth=depth)
+        return lf, lambda tp: lf(tp, batch)
+
+    def composed(tp):
+        tot = 0.0
+        for m in range(M):
+            sl = slice(m * mb, (m + 1) * mb)
+            h = stage_fn(tree_map(lambda a: a[0], tp["blocks"]),
+                         embed_fn(tp["embed"], batch["x"][sl]))
+            Zf = codec.decode(tp["codec"], codec.encode(tp["codec"],
+                                                        h.reshape(mb, -1)))
+            h = stage_fn(tree_map(lambda a: a[1], tp["blocks"]), Zf.reshape(h.shape))
+            tot = tot + head_loss_fn(tp["head"], h, batch["y"][sl])
+        return tot / M
+
+    names = leaf_names(as_lm_tree(params))
+    lf1, fn1 = pipeline(1)
+    circconv.reset_launch_counts()
+    l1, g1 = value_and_grad(fn1, params)
+    torch.cuda.synchronize()
+    shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+              for k, n in circconv.SHAPE_LAUNCHES.items()}
+    want_shapes = {"{}/{}x{}x{}".format(k, *PIPE_SHAPE): 2 * M
+                   for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"pipeline step 0 shapes {shapes}, want {want_shapes}")
+    check(all(bool(torch.isfinite(g).all()) for g in tree_leaves(g1)),
+          "pipeline step-0 gradients not finite")
+    out = {"loss": l1, "launches": shapes, "call": dataclasses.asdict(lf1.last_call)}
+    g1_lm = as_lm_tree(g1)
+    for what, fn, tree in (
+            ("composition", composed, params),
+            ("lm_loss", lambda tp: lm_lib.lm_loss(tp, b, cfg, codec=codec,
+                                                  codec_params=cp), full)):
+        loss, g = value_and_grad(fn, tree)
+        rel = abs(loss - l1) / abs(loss)
+        errs = leaf_errs(g1_lm, as_lm_tree(g) if what == "composition" else g, names)
+        out[what] = {"loss": loss, "loss_rel_err": rel, "grad_leaf_rel_err": errs[0][0],
+                     "worst_leaves": errs[:3]}
+        check(rel <= 1e-6, f"pipeline step-0 loss {l1} vs {what} {loss}")
+        check(errs[0][0] <= 1e-4, f"pipeline step-0 grads vs {what}: {errs[:3]}")
+        del g
+        free_cuda()
+    codec_grads = tree_leaves(g1["codec"])
+    lf2, fn2 = pipeline(2)
+    l2, g2 = value_and_grad(fn2, params)
+    differ = [n for n, a, c in zip(leaf_names(g1), tree_leaves(g1), tree_leaves(g2))
+              if not torch.equal(a, c)]
+    out["depth2"] = {"loss": l2, "leaves_not_bitwise": differ,
+                     "call": dataclasses.asdict(lf2.last_call)}
+    check(l2 == l1, f"pipeline step-0 loss depth 2 {l2} != depth 1 {l1}")
+    check(not differ, f"pipeline step-0 grads depth 2 vs 1 not bitwise: {differ}")
+    out["codec_grad_max"] = max(float(g.abs().max()) for g in codec_grads)
+    del full, params, g1, g2, codec_grads, g1_lm
+    free_cuda()
+    return out
+
+
+def pipeline_training(dev, cfg, depth: int) -> dict:
+    """``launch.train.run_pipeline`` at ``depth`` for LM_STEPS steps from
+    the seed's weights (the parity's), launch counts reset just before and
+    read just after: finite losses, 8 + 8 circconv launches a step, all on
+    the four-step route at PIPE_SHAPE, none at another shape; the wire
+    bytes a microbatch and a step a direction exactly; the call record (M
+    payloads over M + depth steps, same-device); then the step time and
+    profile (``train_step_times``) and the peak memory."""
+    import torch
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import train
+    from repro_torch.transport import split_comm_bytes
+
+    args = pipeline_args(depth)
+    M, mb = PIPE_MICROBATCHES, LM_BATCH // PIPE_MICROBATCHES
+    G, R, D = PIPE_SHAPE
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    circconv.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train.run_pipeline(args, cfg, out=out)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, routes, by_kernel = (dict(circconv.LAUNCHES), route_counts(),
+                                 record_launches())
+    shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+              for k, n in circconv.SHAPE_LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    what = f"pipeline training depth {depth}"
+    check(len(losses) == LM_STEPS and all(map(math.isfinite, losses)),
+          f"{what} losses {losses}")
+    per_step = 2 * M
+    want = {"bind_superpose": per_step * LM_STEPS, "unbind": per_step * LM_STEPS}
+    check(counts == want, f"{what} launches {counts}, want {want}")
+    check_fft_route(routes, per_step * LM_STEPS, what, route="fft4")
+    want_shapes = {f"{k}/{G}x{R}x{D}": per_step * LM_STEPS
+                   for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"{what} shapes {shapes}, want {want_shapes}")
+    codec = out["codec"]
+    mode = getattr(codec, "transform", codec).execution_mode(dev)
+    check(mode == "cuda-kernel", f"{LM_CODEC} ran as {mode}, not the CUDA kernels")
+    wf = split_comm_bytes(codec, mb, directions=1)
+    wb = split_comm_bytes(codec, mb) - wf
+    check(wf == wb == G * D * 4, f"{what} wire a microbatch {wf} + {wb}, want "
+          f"{G * D * 4} each")
+    # the record is what the loop saw: the payload tensors that crossed
+    # the boundary hold the analytic G*D*4 bytes of a microbatch each
+    rec = dataclasses.asdict(out["loss_fn"].last_call)
+    want_rec = {"steps": M + depth, "payloads": M, "payload_bytes": M * G * D * 4,
+                "max_held": depth, "wire": "same-device"}
+    check(rec == want_rec, f"{what} call record {rec}, want {want_rec}")
+    check(M * wf == LM_BATCH // R * D * 4, f"{what} wire a step {M * wf}, want "
+          f"phase 7's {LM_BATCH // R * D * 4}")
+
+    step = out["step"]
+    b = lm_batch(cfg, args, LM_STEPS, dev)
+    batch = {"x": b["tokens"], "y": b["labels"]}
+
+    def one():
+        step(out["params"], out["opt_state"], batch)
+
+    step_ms, prof = train_step_times(one, LM_TIMED_STEPS)
+    del out, step, batch, b
+    free_cuda()
+    return {"depth": depth, "losses": losses, "launches": counts,
+            "route_launches": routes, "record_launches": by_kernel,
+            "shape_launches": shapes, "wire_microbatch": [wf, wb],
+            "wire_step": [M * wf, M * wb], "call": rec, "run_s": run_s,
+            "peak_gb": peak_gb, "step_ms": step_ms,
+            "timed_steps": LM_TIMED_STEPS, "profile": prof}
+
+
+def pipeline_phase(dev, cfg) -> dict:
+    """Phase 17: the parity at step 0, then the training runs at each of
+    PIPE_DEPTHS; their losses equal across depths within 1e-6 relative."""
+    t0 = time.perf_counter()
+    parity = pipeline_parity(cfg, dev)
+    runs = {d: pipeline_training(dev, cfg, d) for d in PIPE_DEPTHS}
+    base = runs[PIPE_DEPTHS[0]]["losses"]
+    for d, r in runs.items():
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+        check(gap <= 1e-6, f"pipeline losses depth {d} {r['losses']} vs {base}")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "stages": [cfg.num_superblocks // 2] * 2, "batch": LM_BATCH,
+            "seq": LM_SEQ, "microbatches": PIPE_MICROBATCHES,
+            "codec": LM_CODEC, "shape": list(PIPE_SHAPE), "parity": parity,
+            "runs": runs, "seconds": time.perf_counter() - t0}
+
+
+def print_pipeline(card, res, lm=None):
+    """Phase 17's lines; ``lm``, phase 7's record, puts the single-program
+    step beside the pipeline's."""
+    par = res["parity"]
+    print(f"phase 17: the 2-stage pod pipeline, {res['arch']} full width, "
+          f"{res['layers']} layers as {res['stages'][0]} + {res['stages'][1]} "
+          f"superblocks, B {res['batch']} S {res['seq']} in "
+          f"{res['microbatches']} microbatches, {res['codec']} on the stage "
+          f"channel (payload {res['shape'][0]} x {res['shape'][2]})", flush=True)
+    print(f"pipeline step 0 depth 1: loss {par['loss']:.6f}; vs the "
+          f"per-microbatch composition loss rel err "
+          f"{par['composition']['loss_rel_err']:.3g}, grad leaf rel err "
+          f"{par['composition']['grad_leaf_rel_err']:.3g}; vs single-program "
+          f"lm_loss {par['lm_loss']['loss']:.6f} rel err "
+          f"{par['lm_loss']['loss_rel_err']:.3g}, grad leaf rel err "
+          f"{par['lm_loss']['grad_leaf_rel_err']:.3g}; depth 2 bitwise (loss "
+          f"{par['depth2']['loss']:.6f}, leaves not bitwise "
+          f"{par['depth2']['leaves_not_bitwise']}); launches {par['launches']}",
+          flush=True)
+    for d, r in res["runs"].items():
+        c = r["call"]
+        print(f"pipeline training depth {d}: {LM_STEPS} steps, losses "
+              f"{[round(v, 6) for v in r['losses']]}, launches {r['launches']}, "
+              f"by shape {r['shape_launches']}, wire fwd "
+              f"{r['wire_microbatch'][0]:,d} B + bwd {r['wire_microbatch'][1]:,d} "
+              f"B a microbatch, {r['wire_step'][0]:,d} B + {r['wire_step'][1]:,d} "
+              f"B a step; call: {c['payloads']} payloads ({c['payload_bytes']:,d} "
+              f"B) over {c['steps']} steps, at most {c['max_held']} held, "
+              f"{c['wire']}", flush=True)
+        beside = "" if lm is None else (
+            f"; phase 7's single-program step {lm['step_ms']:.1f} ms, peak "
+            f"{lm['peak_gb']:.1f} GB")
+        print(f"time [{card}] pipeline train step depth {d} ({res['arch']} x"
+              f"{res['layers']}, B {res['batch']} S {res['seq']}, M "
+              f"{res['microbatches']}, {res['codec']}): {r['step_ms']:.1f} ms "
+              f"(median of {r['timed_steps']}, host included), peak "
+              f"{r['peak_gb']:.1f} GB{beside}", flush=True)
+        lp = r["profile"]
+        if lp is None:
+            print(f"profile [{card}] pipeline train step depth {d}: the "
+                  "profiler saw no device time (not measured)", flush=True)
+            continue
+        lp7 = "" if lm is None or lm["profile"] is None else (
+            f"; phase 7: device {lm['profile']['device_ms_per_step']:.1f} ms, "
+            f"idle {lm['profile']['idle_share_vs_unprofiled_step']:.3f}")
+        print(f"profile [{card}] pipeline train step depth {d}: device "
+              f"{lp['device_ms_per_step']:.1f} ms of {lp['wall_ms_per_step']:.1f} "
+              f"ms wall (idle {lp['idle_share_profiled']:.3f} profiled, "
+              f"{lp['idle_share_vs_unprofiled_step']:.3f} of the unprofiled "
+              f"step), {lp['device_ops_per_step']} device ops; circconv kernels "
+              f"{lp['circconv_ms_per_step']:.4f} ms ({lp['circconv_share']:.5f})"
+              f"{lp7}", flush=True)
+        for t in lp["top"][:6]:
+            print(f"  {t['ms_per_step']:.3f} ms x{t['calls_per_step']}  {t['name']}")
+    print(f"pipeline: phase seconds {res['seconds']:.1f}", flush=True)
 
 
 def main() -> int:
@@ -4050,6 +4352,11 @@ def main() -> int:
     lap("frontdoor")
     print_frontdoor(card, door)
 
+    free_cuda()
+    pipe = pipeline_phase(dev, lm_config())
+    lap("pipeline")
+    print_pipeline(card, pipe, lm)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -4074,7 +4381,8 @@ def main() -> int:
     # the direct kernels' from
     # their explicit calls at the train step's shape; the mixed-radix
     # one-pass kernels' at the four serving shapes; the four-step kernels'
-    # at the three LM training shapes, against the float64 oracle
+    # at the LM training shapes and the pipeline's, against the float64
+    # oracle
     serve_keys = ["{}x{}x{}/float32".format(*sh) for sh in MIXED_SERVE_SHAPES]
     lm_keys = ["{}x{}x{}/float32".format(*sh) for sh in LM_SHAPES]
     cp_keys = (["16x4x2048/float32"]
@@ -4105,14 +4413,15 @@ def main() -> int:
     # run and read just after it (record_launches): the one-pass kernels'
     # in the VGG-16 main run, the control plane's and the serving runs of
     # phases 13, 14 and 15, the direct ones' in the main run, the four-step
-    # ones' in the six LM training runs (phases 7-12), the mixed-radix
+    # ones' in the six LM training runs (phases 7-12) and the two pipeline
+    # runs (phase 17), the mixed-radix
     # one-pass ones' over every run; of these only phase 14's pixtral-12b
     # (D 5120) takes a mixed-radix width, so that sum must be its decode
     # steps and prefill chunks
     def counted(name, runs):
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
-    lm_runs = [lm, qwen, *families.values()]
+    lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values()]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
                               serve_ii, door) for r in f["runs"].values()]
     path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *serve_runs]
@@ -4195,7 +4504,7 @@ def main() -> int:
         "kernel_times": times, "fft4_times": fft4t, "lm_training": lm,
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
-        "serving_ii": serve_ii, "frontdoor": door,
+        "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

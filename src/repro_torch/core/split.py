@@ -2,9 +2,7 @@
 ``repro_torch.transport``.
 
 Port of ``repro/core/split.py``.  Imports are lazy (module ``__getattr__``),
-as in the reference.  The pod pipeline (``make_pod_pipeline_loss_fn``) is
-not ported yet: it comes with ROADMAP.md item 15 (slice 7), and the name
-raises ``NotImplementedError`` until then.
+as in the reference.
 """
 from __future__ import annotations
 
@@ -12,15 +10,11 @@ _EXPORTS = {
     "apply_codec": ("repro_torch.transport.split", "apply_codec"),
     "make_split_loss_fn": ("repro_torch.transport.split", "make_split_loss_fn"),
     "split_comm_bytes": ("repro_torch.transport.split", "split_comm_bytes"),
+    "make_pod_pipeline_loss_fn": ("repro_torch.transport.pipeline",
+                                  "make_pod_pipeline_loss_fn"),
 }
 
-__all__ = [*_EXPORTS, "make_pod_pipeline_loss_fn"]
-
-
-def make_pod_pipeline_loss_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "the pod pipeline (transport/pipeline.py) is not ported yet: it "
-        "comes with ROADMAP.md item 15 (slice 7, multi-device)")
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name: str):

@@ -32,8 +32,17 @@ The step updates params and the optimizer state in place (the reference
 returns new trees; the numbers are the same), so a full-width step holds
 four copies of the params (params, gradients, two moments) and not eight.
 
-Not ported yet: the 2-stage pod pipeline (``--pipeline``) and the
-sanitizer tier (``--sanitize``), ROADMAP.md slice 7.
+``--pipeline`` trains through the 2-stage pod pipeline
+(``run_pipeline``; ``repro_torch.transport.pipeline``): the stack cut in
+two stages, ``--microbatches`` microbatches, the codec's payload handed
+from the front stage to the back one through a ring of ``--async-depth``
+payloads, one autograd graph.  Both stages run on ``--device``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --pipeline \\
+        --steps 4 --batch 16 --seq 16 --microbatches 2 --async-depth 2 \\
+        --codec "c3sl:R=2 >> bwd:c3sl:R=2" --device cpu
+
+Not ported yet: the sanitizer tier (``--sanitize``), ROADMAP.md slice 7.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from repro_torch.data.pipeline import SyntheticTokenDataset, make_batch_iterator
 from repro_torch.interop import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import lm as lm_lib
 from repro_torch.optim import adamw, clip_by_global_norm_
+from repro_torch.transport import pipeline as pipeline_lib
 
 CODEC_SEED = 7   # the reference inits every codec from PRNGKey(7)
 
@@ -71,6 +81,16 @@ def make_codec(spec: str, D: int, *, R: int = 4, quant=None, unitary=False,
         codec = codecs.clamp_R(codec, max_R)
     return codec, codec.init(torch.Generator().manual_seed(CODEC_SEED),
                              device=device)
+
+
+def _apply_grads(flat_grads, params, opt_state, opt):
+    """How a train step applies its gradients (``params``' leaf order):
+    the global-norm clip at 1.0, then the optimizer's ``update_`` in place
+    on ``params`` and ``opt_state``.  Returns the norm before the clip."""
+    grads = tree_unflatten(params, list(flat_grads))
+    gn = clip_by_global_norm_(grads, 1.0)
+    opt.update_(grads, opt_state, params)
+    return gn
 
 
 def make_train_step(cfg, opt, codec, codec_params):
@@ -97,14 +117,18 @@ def make_train_step(cfg, opt, codec, codec_params):
         if any(g is None for g in got[:-1]):
             raise RuntimeError("a param leaf is not on the loss's graph")
         bwd_snr = torch.zeros_like(probe) if got[-1] is None else got[-1]
-        grads = tree_unflatten(params, got[:-1])
-        del train, leaves, got
-        gn = clip_by_global_norm_(grads, 1.0)
-        opt.update_(grads, opt_state, params)
+        del train, leaves
+        gn = _apply_grads(got[:-1], params, opt_state, opt)
         snr = metrics.get("cut_snr")
         return (params, opt_state, loss.detach(), gn,
                 None if snr is None else snr.detach(), bwd_snr)
     return step
+
+
+def _refuse_sanitize(args):
+    if getattr(args, "sanitize", False):
+        raise NotImplementedError("--sanitize is not ported yet: it comes "
+                                  "with ROADMAP.md slice 7")
 
 
 def _to_device(erasure, device):
@@ -122,9 +146,7 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
     zero frontend batch.  A dict ``out``
     receives the final ``params`` and ``opt_state``, the step table and the
     codec, for a caller that goes on from there."""
-    if getattr(args, "sanitize", False):
-        raise NotImplementedError("--sanitize is not ported yet: it comes "
-                                  "with ROADMAP.md slice 7")
+    _refuse_sanitize(args)
     device = args.device
     if params is None:
         params = lm_lib.init_lm_params(args.seed, cfg, device=device)
@@ -267,6 +289,111 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
     return losses
 
 
+def make_pipeline_step(loss_fn, opt):
+    """One train step through the pod pipeline's ``loss_fn``:
+    ``step(params, opt_state, batch, keep=None) -> (params, opt_state,
+    loss, gnorm)``.  The gradients of every leaf of the pipeline's params
+    tree (zeros where a leaf is off the graph, as C3-SL's fixed keys), the
+    global-norm clip at 1.0 and the optimizer's ``update_``, in place on
+    ``params`` and ``opt_state``.  ``keep`` is the erasure variant's mask
+    stack.  No host sync."""
+    def step(params, opt_state, batch, keep=None):
+        train = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = loss_fn(train, batch) if keep is None else loss_fn(train, batch,
+                                                                   keep)
+        leaves = tree_leaves(train)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                  materialize_grads=True)
+        del train, leaves
+        gn = _apply_grads(got, params, opt_state, opt)
+        return params, opt_state, loss.detach(), gn
+    return step
+
+
+def pipeline_params(full, codec_params):
+    """The pipeline's params tree from the LM's (``init_lm_params``):
+    ``{"embed", "blocks" (the stack as views with a leading stage axis of
+    2), "head", "codec"}``."""
+    return {"embed": {"embed": full["embed"]},
+            "blocks": lm_lib.split_stack_for_pipeline(full["stack"]),
+            "head": {"final_norm": full["final_norm"], "head": full["head"]},
+            "codec": codec_params}
+
+
+def run_pipeline(args, cfg, *, params=None, codec_params=None, out=None):
+    """The 2-stage pod pipeline with the compressed channel.  Returns the
+    per-step losses.
+
+    Port of the reference's ``run_pipeline``: R clamped to the microbatch,
+    the identity codec where the spec is ``none``, an adaptive link or
+    codec pinned at its current bucket, the params tree ``{"embed",
+    "blocks" (leading stage axis 2), "head", "codec"}``, AdamW over all of
+    it, the same log lines.  Unlike the reference it asks for no even
+    device count: both stages go on ``args.device``.  ``params`` (the LM's
+    own tree, ``init_lm_params``) and ``codec_params`` replace the seeded
+    inits; a dict ``out`` receives the final ``params`` and ``opt_state``,
+    the step, the loss function and the codec."""
+    _refuse_sanitize(args)
+    device = args.device
+    full = params if params is not None else lm_lib.init_lm_params(
+        args.seed, cfg, device=device)
+    # R is clamped to the microbatch size BEFORE init so the key shapes match
+    mb = args.batch // args.microbatches
+    codec, made = make_codec(args.codec, args.seq * cfg.d_model, R=args.R,
+                             quant=args.quant, unitary=args.unitary, max_R=mb,
+                             device=device)
+    if codec is None:
+        codec, made = codecs.build("identity", D=args.seq * cfg.d_model), {}
+    if codec_params is None:
+        codec_params = made
+    if isinstance(codec, transport.SplitLink):
+        if codec.fwd.adaptive or codec.bwd.adaptive:
+            # the pipeline's loss closes over ONE codec pair: pin both
+            # channels at their current buckets
+            print(f"[pipeline] adaptive link pinned at "
+                  f"R={codec.fwd.current_R}>>bwd:{codec.bwd.current_R} "
+                  f"(per-step adaptation needs the single-program path)",
+                  flush=True)
+            codec_params = transport.slice_link_params(codec, codec_params)
+            codec = transport.pin_link(codec)
+    elif isinstance(codec, codecs.AdaptiveC3SL):
+        print(f"[pipeline] adaptive codec pinned to its current bucket "
+              f"R={codec.current_R} (per-step adaptation needs the "
+              f"single-program path)", flush=True)
+        codec_params = codec.params_for(codec_params)
+        codec = codec.current
+
+    params = pipeline_params(full, codec_params)
+    loss_fn = pipeline_lib.make_pod_pipeline_loss_fn(
+        *lm_lib.make_pipeline_fns(cfg), codec,
+        num_microbatches=args.microbatches, async_depth=args.async_depth)
+    opt = adamw(args.lr)
+    opt_state = opt.init(params)
+    step_fn = make_pipeline_step(loss_fn, opt)
+
+    data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
+    it = make_batch_iterator(data, args.batch, device=device)
+    losses = []
+    t0 = time.time()
+    for step in range(args.steps):
+        b = next(it)
+        batch = {"x": b["tokens"], "y": b["labels"]}
+        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        losses.append(loss)   # device value; one sync after the loop
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"[pipeline] step {step:5d} loss {float(loss):.4f} "  # lint-ok: R3 log-gated (log_every cadence)
+                  f"({time.time()-t0:.1f}s)", flush=True)
+    losses = [float(l) for l in losses]   # one deferred sync for the run
+    wf = transport.split_comm_bytes(codec, mb, directions=1)
+    wb = transport.split_comm_bytes(codec, mb) - wf
+    print(f"[pipeline] channel: async_depth={args.async_depth}, per-microbatch "
+          f"wire fwd {wf:,d} B + bwd {wb:,d} B", flush=True)
+    if out is not None:
+        out.update(params=params, opt_state=opt_state, step=step_fn,
+                   loss_fn=loss_fn, codec=codec)
+    return losses
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
@@ -288,11 +415,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="8 appends the int8 wire stage to the spec")
     ap.add_argument("--unitary", action="store_true")
     ap.add_argument("--pipeline", action="store_true",
-                    help="not ported yet (ROADMAP.md slice 7)")
+                    help="train through the 2-stage pod pipeline "
+                         "(repro_torch.transport.pipeline): both stages on "
+                         "--device, the payload handed across the boundary")
     ap.add_argument("--microbatches", type=int, default=4,
-                    help="pipeline only: not ported yet (ROADMAP.md slice 7)")
+                    help="pipeline only: microbatches a step (R is clamped "
+                         "to the microbatch)")
     ap.add_argument("--async-depth", type=int, default=1,
-                    help="pipeline only: not ported yet (ROADMAP.md slice 7)")
+                    help="pipeline only: in-flight payloads on the stage "
+                         "channel: 1 = synchronous, 2 = the back stage "
+                         "consumes the payload sent two steps earlier (one "
+                         "extra bubble step; one stream, so only the order "
+                         "of the enqueued work changes)")
     ap.add_argument("--fault-drop", type=float, default=0.0,
                     help="seeded per-packet drop rate on the cut payload "
                          "(repro_torch.faults.FaultPlan; 0 = clean)")
@@ -317,22 +451,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.pipeline:
-        raise NotImplementedError("--pipeline (the 2-stage pod pipeline) is "
-                                  "not ported yet: it comes with ROADMAP.md "
-                                  "slice 7")
-    for flag, default in (("microbatches", 4), ("async_depth", 1)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} only sets the 2-stage pod "
-                f"pipeline, which is not ported yet: it comes with "
-                f"ROADMAP.md slice 7")
+    if args.pipeline and (args.fault_drop > 0.0 or args.fault_corrupt > 0.0):
+        raise SystemExit("fault injection drives the standard loop; the "
+                         "pipeline path takes erasure masks through "
+                         "make_pod_pipeline_loss_fn(with_erasure=True) "
+                         "(see tests/test_faults.py)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"(active {cfg.active_param_count()/1e6:.1f}M)")
-    losses = run_standard(args, cfg)
+    if args.pipeline:
+        losses = run_pipeline(args, cfg)
+    else:
+        losses = run_standard(args, cfg)
     print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
 
 

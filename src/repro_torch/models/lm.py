@@ -1,6 +1,6 @@
 """The LM (causal, VLM and encoder-decoder): params, the training forward
-and loss, and the serving entry points (decode cache, decode step, chunked
-prefill).
+and loss, the serving entry points (decode cache, decode step, chunked
+prefill) and the pod pipeline's stage functions.
 
 Port of ``repro/models/lm.py``.  Params and caches keep the
 reference's trees (stacked leaves with a leading superblock axis, dense
@@ -394,3 +394,39 @@ def verify_chunk(params, cache, tokens, pos, cfg: ModelConfig, *,
     feat = cut_seq if codec is not None else h
     hn = _apply_norm(cfg, params["final_norm"], h)
     return matmul(hn, params["head"]), feat
+
+
+# ---------------------------------------------------------------------------
+# pod-pipeline adapter (transport.make_pod_pipeline_loss_fn callables)
+# ---------------------------------------------------------------------------
+
+def make_pipeline_fns(cfg: ModelConfig):
+    """(embed_fn, stage_fn, head_loss_fn) for the 2-stage pod pipeline.
+
+    ``params["blocks"]`` must be the stacked superblocks with a leading
+    stage axis of 2 (:func:`split_stack_for_pipeline`).  Each stage's
+    superblocks run with remat; the head applies the final norm, the head
+    matmul and the token CE with labels == -1 masked."""
+
+    def embed_fn(embed_p, x_mb):
+        return embed_p["embed"][x_mb.long()]
+
+    def stage_fn(blocks_local, h):
+        h, _ = stack_lib.apply_stack(blocks_local, cfg, h, _positions(h),
+                                     remat=True)
+        return h
+
+    def head_loss_fn(head_p, h, y_mb):
+        h = _apply_norm(cfg, head_p["final_norm"], h)
+        logits = h @ head_p["head"]
+        return softmax_cross_entropy(logits, torch.clamp(y_mb, min=0), y_mb >= 0)
+
+    return embed_fn, stage_fn, head_loss_fn
+
+
+def split_stack_for_pipeline(stacked, n_stages: int = 2):
+    """The stacked superblocks with a leading stage axis: each leaf's
+    (N, ...) reshaped to (n_stages, N // n_stages, ...), a view."""
+    return tree_map(
+        lambda a: a.reshape(n_stages, a.shape[0] // n_stages, *a.shape[1:]),
+        stacked)

@@ -15,9 +15,10 @@ measures the gradient-retrieval SNR in the same backward pass (the probe's
 gradient), the feedback for an independent backward ``AdaptiveC3SL``.
 
 The loss builder is :func:`make_split_loss_fn` (logical split, front and
-back in one process) and the train step :func:`make_split_train_step`.  The
-reference's pod pipeline (``make_pod_pipeline_loss_fn``) is not ported yet
-(ROADMAP.md item 15).
+back in one process) and the train step :func:`make_split_train_step`; the
+2-stage pod pipeline is :func:`make_pod_pipeline_loss_fn` (microbatches
+through a front and a back stage, the payload handed across the boundary,
+one autograd graph).
 """
 from repro_torch.faults import ChannelErasure, FaultPlan, RecoveryPolicy
 from repro_torch.transport.channel import Channel, grad_roundtrip, masked_decode
@@ -33,6 +34,7 @@ from repro_torch.transport.split import (apply_codec, make_split_loss_fn,
                                          split_comm_bytes,
                                          split_value_and_grad,
                                          trainable_params)
+from repro_torch.transport.pipeline import make_pod_pipeline_loss_fn
 
 __all__ = [
     "Channel", "SplitLink", "grad_roundtrip", "roundtrip", "masked_decode",
@@ -42,5 +44,6 @@ __all__ = [
     "slice_link_params", "has_trainable_params",
     "apply_codec", "make_split_loss_fn", "split_comm_bytes",
     "make_split_train_step", "split_value_and_grad", "trainable_params",
+    "make_pod_pipeline_loss_fn",
     "FaultPlan", "RecoveryPolicy", "ChannelErasure",
 ]

@@ -85,7 +85,7 @@ def _run_blocked(code):
     "repro_torch.models.lm", "repro_torch.data.pipeline",
     "repro_torch.optim", "repro_torch.models.moe", "repro_torch.models.mamba",
     "repro_torch.models.rwkv", "repro_torch.models.attention",
-    "repro_torch.models.stack"])
+    "repro_torch.models.stack", "repro_torch.transport.pipeline"])
 def test_training_modules_import_with_jax_absent(module):
     out = _run_blocked(f"import {module}\nprint('ok')\n")
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
@@ -132,6 +132,28 @@ def test_reference_params_round_trip_with_key_paths():
     # the port's leaf order is jax.tree's (dicts in sorted key order)
     assert [tuple(x.shape) for x in tree_leaves(t)] == \
         [x.shape for x in jax.tree.leaves(tree)]
+
+
+def test_pipeline_params_round_trip_with_the_stage_axis():
+    """The pod pipeline's params tree as the reference builds it (the
+    stack split to a leading stage axis of 2, the C3-SL keys and their
+    complex spectrum) carries across and back with its key paths."""
+    from repro.configs import base as jconfigs
+    from repro.models import lm as jlm
+    cfg = jconfigs.reduced(jconfigs.get_config("deepseek-7b"))
+    full = jlm.init_lm_params(jax.random.PRNGKey(0), cfg)
+    tree = jax.tree.map(np.asarray, {
+        "embed": {"embed": full["embed"]},
+        "blocks": jlm.split_stack_for_pipeline(full["stack"]),
+        "head": {"final_norm": full["final_norm"], "head": full["head"]},
+        "codec": jbuild("c3sl:R=2", D=16 * cfg.d_model).init(jax.random.PRNGKey(7))})
+    t = params_from_numpy(tree, device="cpu")
+    assert all(x.shape[0] == 2 for x in tree_leaves(t["blocks"]))
+    assert t["codec"]["keys_fft"].dtype == torch.complex64
+    back = params_to_numpy(t)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_complex_key_spectrum_becomes_complex64():
