@@ -367,6 +367,38 @@ Phases (any failure exits non-zero, and no result line is printed):
       mode ``same-device``; the step time (CUDA events, the median of 3, host
       included), a ``torch.profiler`` breakdown of 2 steps and the peak
       memory, beside phase 7's single-program step.
+18. The runtime sanitizer tier (``repro_torch.analysis``), after
+   ``free_cuda()``.  a, b and d on phase 4's model and settings (float32,
+   all 30 layers, 8 slots, page 16, the kernel read,
+   ``c3sl:R=4,backend=pallas``); c on phase 7's.
+   a. 12 requests of 128 tokens with budgets 8 + 4i, driven by ``tick()``
+      until idle, unarmed and then with an ``EngineSanitizer`` attached:
+      greedy tokens equal, the pool, slot-state and cut-zeroing counts all
+      > 0, the pool whole after the drain; both runs held by
+      ``check_family_run`` (the cut probe runs the front half only,
+      through the gather: it launches no kernel); each tick's wall time.
+   b. 2 of the 8 slots two ticks into decoding: 3 real probes, timed,
+      the 4 GB cache and the slot state bitwise unchanged after them; a
+      probe built with ``live=None`` reports a nonzero dead-row |cut| sum
+      and trips "live-slot zeroing" (writing nothing either) while a
+      fresh real probe passes; after the drain, a dirty empty slot trips
+      "not inert" and a leaky allocator "accounting".
+   c. Phase 7's model (8 of 30 layers, B 16, S 128, D 524288):
+      ``run_standard`` and ``run_pipeline`` (4 microbatches, depth 1), 2
+      steps each unarmed and under ``--sanitize``: the losses bitwise
+      equal, every step checked, anomaly mode off after each run, 2 + 2
+      (standard) and 8 + 8 (pipeline) four-step launches a step; 2 more
+      steps of each run's step timed (armed: also without anomaly mode);
+      then a ``--sanitize`` step with one element of a parameter NaN
+      raises ``SanitizerError`` naming step 0 and the leaf, and
+      ``finite_outputs`` trips on a NaN and an inf in a tensor on the
+      card.
+   d. The selfcheck's sequential run through the door under
+      ``--sanitize`` (``sync_every`` 2) at 16c's settings: its report
+      (ticks, counts, event-loop stalls), the cut-zeroing check > 0,
+      tokens equal to 16c's fault-free run (one live slot at a time),
+      ``check_family_run``.
+   The armed tick and train step print beside the unarmed ones.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -1182,8 +1214,9 @@ def make_engine(params, cfg, kv_read: str, **over):
 
 def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
               drive=None, gaps=False, prompt_len=SERVE_PROMPT, **over):
-    """One engine run of ``n_req`` requests of ``prompt_len`` tokens
-    (``over`` overrides SERVE_ENGINE's settings), launch counts and, with
+    """One engine run of ``n_req`` requests of ``prompt_len`` tokens and
+    ``max_new`` new ones (an int, or a list of one budget a request;
+    ``over`` overrides SERVE_ENGINE's settings), launch counts and, with
     experts, the MoE
     routing log reset just before and read just after.  ``drive(eng,
     prompts)`` replaces "submit every prompt, then ``run()``" and returns
@@ -1207,6 +1240,7 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
         return got
     eng._alloc_slot_pages = owned_alloc
     prompts = serve_prompts(n_req, cfg.vocab_size, prompt_len)
+    budgets = max_new if isinstance(max_new, list) else [max_new] * n_req
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.reset_launch_counts()
@@ -1218,7 +1252,8 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
             t0 = time.perf_counter()
             if drive is None:
                 for u, p in enumerate(prompts):
-                    eng.submit(Request(uid=u, prompt=p, max_new_tokens=max_new))
+                    eng.submit(Request(uid=u, prompt=p,
+                                       max_new_tokens=budgets[u]))
                 done, info = eng.run(), {}
             else:
                 done, info = drive(eng, prompts)
@@ -1257,7 +1292,8 @@ def serve_run(params, cfg, kv_read: str, n_req: int, max_new: int,
                                  "spec_rollbacks", "evictions", "withdrawn",
                                  "kv_read_execution_mode",
                                  "codec_execution_mode")}}
-    check(len(done) == n_req and all(len(o) == max_new for o in outs.values()),
+    check(len(done) == n_req and all(len(o) == budgets[u]
+                                     for u, o in outs.items()),
           f"serve {kv_read}: {len(done)} of {n_req} requests, lengths "
           f"{sorted({len(o) for o in outs.values()})}")
     check(rec["finite_logits"], f"serve {kv_read}: non-finite logits")
@@ -2605,19 +2641,21 @@ def door_tenants_drive(eng, prompts):
     return [reqs[u] for u in sorted(reqs)], {"door": door}
 
 
-def door_chaos_drive(faults):
+def door_chaos_drive(faults, sanitize=False):
     """16c: the selfcheck's sequential run (3 tenants, one request in
     flight at a time) with ``faults``, the door's engine at phase 4's
     settings, DOOR_CHAOS_REQUESTS requests a tenant of DOOR_PROMPT +
-    DOOR_NEW."""
+    DOOR_NEW; 18d: the same with the selfcheck's ``--sanitize`` tier
+    armed (its report under "sanitize")."""
     from repro_torch.frontdoor import selfcheck
 
     def drive(eng, prompts):
         reqs, ticks = door_hooks(eng)
         got, server = asyncio.run(selfcheck._sequential_run(
             eng, DOOR_CHAOS_REQUESTS, faults, codec=SERVE_CODEC,
-            prompt_len=DOOR_PROMPT, max_new=DOOR_NEW))
+            prompt_len=DOOR_PROMPT, max_new=DOOR_NEW, sanitize=sanitize))
         st = got.pop("_stats")
+        report = got.pop("_sanitize", None)
         tokens = {name: got[name] for name, _ in selfcheck.CHAOS_TENANTS}
         # the last tenant's STATS, taken with its requests delivered; this
         # run's heartbeats are the selfcheck's (0.2 s x 10), and a tick past
@@ -2628,7 +2666,10 @@ def door_chaos_drive(faults):
         door = {**books, "tokens": tokens, "recovered": recovered,
                 "streamed": got["_streamed"],
                 "injected": None if faults is None else repr(faults)}
-        return [reqs[u] for u in sorted(reqs)], {"door": door}
+        info = {"door": door}
+        if report is not None:
+            info["sanitize"] = report
+        return [reqs[u] for u in sorted(reqs)], info
     return drive
 
 
@@ -4089,6 +4130,363 @@ def print_pipeline(card, res, lm=None):
     print(f"pipeline: phase seconds {res['seconds']:.1f}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 18: the runtime sanitizer tier
+# --------------------------------------------------------------------------
+
+SAN_REQUESTS = 12
+# staggered budgets: slots finish at different ticks, so ticks see a
+# dead/live mix and the cut probe runs
+SAN_BUDGETS = [8 + 4 * i for i in range(SAN_REQUESTS)]
+SAN_STEPS = 2
+SAN_PROBES = 3
+
+
+def sanitize_drive(armed: bool):
+    """18a: request u gets SAN_BUDGETS[u] new tokens; ``tick()`` until
+    idle, each working tick's wall time kept (synchronised after it); with
+    ``armed`` an ``EngineSanitizer`` attached first, its ticks and counts
+    under "sanitize"."""
+    import torch
+    from repro_torch.analysis import EngineSanitizer
+    from repro_torch.serving.engine import Request
+
+    def drive(eng, prompts):
+        san = None
+        if armed:
+            san = EngineSanitizer(eng)
+            eng.attach_sanitizer(san)
+        for u, p in enumerate(prompts):
+            eng.submit(Request(uid=u, prompt=p, max_new_tokens=SAN_BUDGETS[u]))
+        ticks = []
+        while True:
+            t0 = time.perf_counter()
+            worked = eng.tick()
+            torch.cuda.synchronize()
+            if not worked:
+                break
+            ticks.append(time.perf_counter() - t0)
+        info = {"tick_s": ticks, "pool": eng.pool_accounting()}
+        if san is not None:
+            san.check_pool(eng)            # the drained pool, exact
+            info["sanitize"] = {"ticks": san.ticks, "counts": dict(san.counts)}
+        return eng.finished, info
+    return drive
+
+
+def _same_bytes(before, now) -> bool:
+    import torch
+    return len(before) == len(now) and all(
+        torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for a, b in zip(before, now))
+
+
+def sanitize_faults(params, cfg) -> dict:
+    """18b on phase 4's engine (kernel read), 2 of its 8 slots two ticks
+    into decoding: SAN_PROBES real probes, timed (each ends in a host
+    read), the cache's and the state's bytes unchanged after them; a probe
+    built with ``live=None`` (the encode without the live-slot mask)
+    reports a nonzero dead-row |cut| sum and trips "live-slot zeroing",
+    writing nothing either, while a fresh real probe passes on the same
+    state; after the drain, a dirty empty slot trips "not inert" and a
+    leaky allocator "accounting"."""
+    import torch
+    from repro_torch.analysis import EngineSanitizer, SanitizerError
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.serving.engine import Request
+
+    eng = make_engine(params, cfg, "kernel")
+    for u, p in enumerate(serve_prompts(2, cfg.vocab_size)):
+        eng.submit(Request(uid=u, prompt=p, max_new_tokens=SERVE_NEW))
+    eng.tick()
+    eng.tick()
+    n_live = int((eng.state["active"] & ~eng.state["done"]).sum())
+    check(n_live == 2, f"phase 18b: {n_live} live slots, want 2")
+
+    def leaves():
+        return tree_leaves(eng.cache) + list(eng.state.values())
+
+    before = [t.clone() for t in leaves()]
+    san = EngineSanitizer(eng)
+    probe_ms = []
+    for _ in range(SAN_PROBES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        san.check_cut_zeroing(eng)
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    check(san.counts["cut_zeroing"] == SAN_PROBES and _same_bytes(before, leaves()),
+          f"phase 18b: the probe wrote into the cache or state, or did not "
+          f"run ({san.counts})")
+
+    def unmasked(params_, cache, state):
+        liv = state["active"] & ~state["done"]
+        cut = lm_lib.decode_cut(params_, cache, state["last_tok"][:, None],
+                                state["pos"], cfg, paged=eng.paged, live=None)
+        dead = (~liv).to(cut.dtype)[:, None]
+        return torch.sum(torch.abs(cut) * dead), liv.sum()
+
+    dead_mag = float(unmasked(eng.params, eng.cache, eng.state)[0])
+    bad = EngineSanitizer(eng)
+    bad._probe = unmasked
+    trips = {}
+
+    def trip(what, fn):
+        try:
+            fn()
+        except SanitizerError as e:
+            trips[what] = str(e)
+
+    trip("unmasked_probe", lambda: bad.check_cut_zeroing(eng))
+    fixed = EngineSanitizer(eng)
+    fixed.check_cut_zeroing(eng)
+    check(dead_mag > 0 and math.isfinite(dead_mag)
+          and "live-slot zeroing" in trips.get("unmasked_probe", "")
+          and fixed.counts["cut_zeroing"] == 1 and _same_bytes(before, leaves()),
+          f"phase 18b: unmasked probe dead-row sum {dead_mag}, trip "
+          f"{trips.get('unmasked_probe')!r}, real probe {fixed.counts}")
+    del before
+    eng.run()
+    san.check_slot_state(eng)
+    san.check_pool(eng)
+    eng.state["active"][5] = True                  # a broken retire
+    trip("dirty_slot", lambda: san.check_slot_state(eng))
+    eng.state["active"][5] = False
+    allocator = eng.allocator
+
+    class LeakyAllocator:
+        free_pages = 1               # pages vanished: free + in_use < total
+
+    eng.allocator = LeakyAllocator()
+    trip("leaky_allocator", lambda: san.check_pool(eng))
+    eng.allocator = allocator
+    check("not inert" in trips.get("dirty_slot", "")
+          and "accounting" in trips.get("leaky_allocator", ""),
+          f"phase 18b: planted faults {trips}")
+    return {"probe_ms": probe_ms, "dead_row_cut_sum": dead_mag, "trips": trips,
+            "cache_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(eng.cache)) / 1e9}
+
+
+def sanitize_training(dev) -> dict:
+    """18c at phase 7's model (deepseek-7b x 8 at full width, B 16, S 128,
+    D 524288 on the four-step kernels): ``run_standard`` and
+    ``run_pipeline`` at depth 1, SAN_STEPS steps each, unarmed then armed
+    (``--sanitize``) from the seed, launch counts reset just before and
+    read just after each run: the armed losses bitwise the unarmed ones,
+    every step checked, anomaly mode off after the run, the launches a
+    step phase 7's and 17's; then SAN_STEPS more steps of the run's own
+    step, timed (CUDA events around single steps, host included; armed:
+    in its sanitizer scope with the per-step check).  Then a
+    ``--sanitize`` step with one parameter element NaN raises
+    ``SanitizerError`` naming step 0 and the leaf, and ``finite_outputs``
+    trips on a NaN and on an inf in a tensor on the card."""
+    import torch
+    from repro_torch.analysis import SanitizerError, finite_outputs
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+
+    cfg = lm_config()
+    runs = {}
+    for loop in ("standard", "pipeline"):
+        pipe = loop == "pipeline"
+        for armed in (False, True):
+            extra = ["--steps", str(SAN_STEPS)] + (["--sanitize"] if armed else [])
+            if pipe:
+                extra += ["--pipeline", "--microbatches", str(PIPE_MICROBATCHES),
+                          "--async-depth", "1"]
+            args = lm_args(None, extra=extra)
+            what = f"phase 18c {loop} {'armed' if armed else 'unarmed'}"
+            out = {}
+            torch.cuda.synchronize()
+            circconv.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = (train.run_pipeline if pipe else train.run_standard)(
+                args, cfg, out=out)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts, routes = dict(circconv.LAUNCHES), route_counts()
+            by_kernel = record_launches()
+            san = out["train_sanitizer"]
+            per_step = 2 * PIPE_MICROBATCHES if pipe else 2
+            want = {"bind_superpose": per_step * SAN_STEPS,
+                    "unbind": per_step * SAN_STEPS}
+            check(counts == want, f"{what} launches {counts}, want {want}")
+            check_fft_route(routes, per_step * SAN_STEPS, what, route="fft4")
+            check(len(losses) == SAN_STEPS and all(map(math.isfinite, losses))
+                  and not torch.is_anomaly_enabled()
+                  and (san is not None) == armed
+                  and (not armed or san.steps_checked == SAN_STEPS),
+                  f"{what}: losses {losses}, anomaly mode "
+                  f"{torch.is_anomaly_enabled()}, sanitizer {san}")
+            b = lm_batch(cfg, args, SAN_STEPS, dev)
+            if pipe:
+                step, batch = out["step"], {"x": b["tokens"], "y": b["labels"]}
+                call = lambda: step(out["params"], out["opt_state"], batch)  # noqa: E731
+            else:
+                step, batch = out["step_fns"][None], b
+                probe0 = torch.zeros((), dtype=torch.float32, device=dev)
+                call = lambda: step(out["params"], out["opt_state"], batch, probe0)  # noqa: E731
+            n = [SAN_STEPS]
+
+            def one(anomaly=True):
+                if san is None:
+                    return call()
+                with (san.step_scope(n[0]) if anomaly else contextlib.nullcontext()):
+                    res = call()
+                san.check_step(n[0], loss=res[2], gnorm=res[3])
+                n[0] += 1
+
+            step_ms = cuda_ms(one, warmup=0, calls=1, reps=SAN_STEPS, hide_host=False)
+            # the armed step without anomaly mode: the output check and the
+            # per-step check alone, to split the armed step's cost
+            checks_ms = None if san is None else cuda_ms(
+                lambda: one(anomaly=False), warmup=0, calls=1, reps=SAN_STEPS,
+                hide_host=False)
+            runs[f"{loop}_{'armed' if armed else 'unarmed'}"] = {
+                "losses": losses, "run_s": run_s, "step_ms": step_ms,
+                "checks_only_step_ms": checks_ms,
+                "launches": counts, "route_launches": routes,
+                "record_launches": by_kernel,
+                "steps_checked": None if san is None else san.steps_checked}
+            del out, step, batch, b, call, one
+            free_cuda()
+        a, u = runs[f"{loop}_armed"], runs[f"{loop}_unarmed"]
+        check(a["losses"] == u["losses"], f"phase 18c {loop}: armed losses "
+              f"{a['losses']} differ from unarmed {u['losses']}")
+    params = lm_lib.init_lm_params(SEED, cfg, device=dev)
+    params["stack"]["l0_0_attn"]["w_q"][0, 0, 0] = float("nan")
+    nan_msg = None
+    try:
+        train.run_standard(lm_args(None, extra=["--steps", "1", "--sanitize"]),
+                           cfg, params=params)
+    except SanitizerError as e:
+        nan_msg = str(e)
+    del params
+    free_cuda()
+    check(nan_msg is not None and re.match(
+        r"\[sanitize\] step 0: step\(\) input params\['stack'\]\['l0_0_attn'\]"
+        r"\['w_q'\] is not finite", nan_msg) and not torch.is_anomaly_enabled(),
+        f"phase 18c: the NaN step raised {nan_msg!r}")
+    x = torch.randn(1 << 22, device=dev)
+    outputs = finite_outputs(lambda t: {"x": t})
+    check(outputs(x)["x"] is x, "phase 18c: finite_outputs changed a finite output")
+    wrapper_trips = {}
+    for name, val in (("nan", math.nan), ("inf", math.inf)):
+        y = x.clone()
+        y[(1 << 21) + 17] = val
+        try:
+            outputs(y)
+        except SanitizerError as e:
+            wrapper_trips[name] = str(e)
+    check(len(wrapper_trips) == 2 and all("output['x'] holds NaN or inf" in m
+                                          for m in wrapper_trips.values()),
+          f"phase 18c: finite_outputs on the card: {wrapper_trips}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "runs": runs,
+            "nan_step": nan_msg, "wrapper_trips": wrapper_trips}
+
+
+def sanitize_serving(dev, door_tokens) -> tuple:
+    """18a, b and d on phase 4's model: a. phase 4's engine armed and
+    unarmed, SAN_REQUESTS requests of SERVE_PROMPT tokens with staggered
+    budgets, driven by ``tick()``; b. the probe alone and the planted
+    faults (``sanitize_faults``); d. the selfcheck's sequential run
+    through the door under ``--sanitize`` at phase 16c's settings
+    (sync_every 2), its tokens held to 16c's fault-free run's
+    (``door_tokens``: one live slot at a time, so the schedule cannot move
+    them).  Returns (the run records, the faults' record); the model and
+    the engines are gone when it returns."""
+    import torch
+    from repro_torch.frontdoor import selfcheck
+    cfg, params = serve_model(torch.float32, dev)
+    serve = {}
+    for armed in (False, True):
+        key = "a_armed" if armed else "a_unarmed"
+        _, serve[key] = serve_run(params, cfg, "kernel", SAN_REQUESTS,
+                                  list(SAN_BUDGETS), drive=sanitize_drive(armed))
+        free_cuda()
+    a, u = serve["a_armed"], serve["a_unarmed"]
+    rep = a["sanitize"]
+    check(a["outs"] == u["outs"], "phase 18a: armed tokens differ from unarmed")
+    check(rep["ticks"] == len(a["tick_s"]) and min(rep["counts"].values()) > 0,
+          f"phase 18a: {rep} over {len(a['tick_s'])} ticks")
+    for r in (a, u):
+        check(r["pool"]["free"] == r["pool"]["total"] and r["pool"]["in_use"] == 0,
+              f"phase 18a: pool after the drain {r['pool']}")
+    check_family_run(u, cfg)
+    check_family_run(a, cfg)
+    faults = sanitize_faults(params, cfg)
+    free_cuda()
+    _, serve["d_selfcheck"] = serve_run(
+        params, cfg, "kernel", len(selfcheck.CHAOS_TENANTS) * DOOR_CHAOS_REQUESTS,
+        DOOR_NEW, drive=door_chaos_drive(None, sanitize=True),
+        prompt_len=DOOR_PROMPT, sync_every=2)
+    d = serve["d_selfcheck"]
+    check(d["door"]["tokens"] == door_tokens, "phase 18d: tokens differ from "
+          f"phase 16c's fault-free run: {d['door']['tokens']} vs {door_tokens}")
+    check(d["sanitize"]["counts"]["cut_zeroing"] > 0,
+          f"phase 18d: {d['sanitize']}")
+    check_family_run(d, cfg)
+    return serve, faults
+
+
+def sanitize_phase(dev, door_tokens) -> dict:
+    """Phase 18 (see the module docstring): ``sanitize_serving`` (18a, b,
+    d), then 18c, the train loops (``sanitize_training``)."""
+    t0 = time.perf_counter()
+    serve, faults = sanitize_serving(dev, door_tokens)
+    free_cuda()
+    train_res = sanitize_training(dev)
+    return {"serve": serve, "faults": faults, "train": train_res,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_sanitize(card, res):
+    a, u, d = (res["serve"][k] for k in ("a_armed", "a_unarmed", "d_selfcheck"))
+    f, tr = res["faults"], res["train"]
+    print(f"phase 18: the runtime sanitizer tier, {SERVE_ARCH} full width, "
+          f"{SERVE_CODEC}, kernel read", flush=True)
+    for key, r in (("a_unarmed", u), ("a_armed", a), ("d_selfcheck", d)):
+        new = r["max_new"]
+        new = f"({min(new)}..{max(new)})" if isinstance(new, list) else new
+        print(f"  sanitize {key}: {r['completed']} requests of {r['prompt_len']}+"
+              f"{new}, {r['decode_steps']} decode steps, {r['prefill_chunks']} prefill "
+              f"chunks; circconv {r['shape_launches']}; paged "
+              f"{r['launches']['paged_attention']}; checks "
+              f"{r.get('sanitize', {}).get('counts', 'off')}", flush=True)
+    print(f"  sanitize a: armed tokens equal unarmed; pool after the drain "
+          f"{a['pool']}", flush=True)
+    print(f"  sanitize d: [selfcheck] sanitize: {d['sanitize']['ticks']} ticks; "
+          f"{d['sanitize']['report']}; tokens equal phase 16c's fault-free run",
+          flush=True)
+    print(f"  sanitize b: {SAN_PROBES} probes wrote nothing ({f['cache_gb']:.2f} "
+          f"GB of cache and the state bitwise); unmasked probe dead-row |cut| "
+          f"sum {f['dead_row_cut_sum']!r}; trips: " + "; ".join(
+              f"{k}: {v[:70]!r}" for k, v in f["trips"].items()), flush=True)
+    print(f"  sanitize c: {tr['arch']} x {tr['layers']}, armed losses equal "
+          "unarmed: " + "; ".join(f"{k} {r['losses']}" for k, r in tr["runs"].items()
+                                  if k.endswith("_armed"))
+          + f"; NaN step: {tr['nan_step'][:110]!r}; finite_outputs on the card: "
+          + ", ".join(tr["wrapper_trips"]), flush=True)
+    med = lambda r: statistics.median(r["tick_s"]) * 1e3  # noqa: E731
+    mean = lambda r: statistics.mean(r["tick_s"]) * 1e3  # noqa: E731
+    print(f"time [{card}] sanitize tick armed {med(a):.1f} ms median, "
+          f"{mean(a):.1f} mean over {len(a['tick_s'])} ticks vs unarmed "
+          f"{med(u):.1f} / {mean(u):.1f} over {len(u['tick_s'])}; run "
+          f"{a['wall_s']:.3f} s vs {u['wall_s']:.3f} s; the probe alone "
+          f"{statistics.median(f['probe_ms']):.1f} ms (median of "
+          f"{SAN_PROBES}, host read included)", flush=True)
+    runs = tr["runs"]
+    print(f"time [{card}] sanitize train step " + "; ".join(
+        f"{loop} armed {runs[loop + '_armed']['step_ms']:.1f} ms vs unarmed "
+        f"{runs[loop + '_unarmed']['step_ms']:.1f} ms (armed without anomaly "
+        f"mode {runs[loop + '_armed']['checks_only_step_ms']:.1f} ms)"
+        for loop in ("standard", "pipeline"))
+        + f" (median of {SAN_STEPS}, host included)", flush=True)
+    print(f"sanitize: phase seconds {res['seconds']:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4357,6 +4755,12 @@ def main() -> int:
     lap("pipeline")
     print_pipeline(card, pipe, lm)
 
+    print("phase 18: the runtime sanitizer tier", flush=True)
+    free_cuda()
+    san = sanitize_phase(dev, door["runs"]["c_fault_free"]["door"]["tokens"])
+    lap("sanitize")
+    print_sanitize(card, san)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -4412,18 +4816,21 @@ def main() -> int:
     # the circconv kernels' launches in each main-path run, counted by the
     # run and read just after it (record_launches): the one-pass kernels'
     # in the VGG-16 main run, the control plane's and the serving runs of
-    # phases 13, 14 and 15, the direct ones' in the main run, the four-step
-    # ones' in the six LM training runs (phases 7-12) and the two pipeline
-    # runs (phase 17), the mixed-radix
+    # phases 13-16 and 18 (its probes' among them), the direct ones' in the
+    # main run, the four-step ones' in the six LM training runs (phases
+    # 7-12), the two pipeline runs (phase 17) and phase 18's four armed and
+    # unarmed train runs, the mixed-radix
     # one-pass ones' over every run; of these only phase 14's pixtral-12b
     # (D 5120) takes a mixed-radix width, so that sum must be its decode
     # steps and prefill chunks
     def counted(name, runs):
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
-    lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values()]
+    lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values(),
+               *san["train"]["runs"].values()]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
                               serve_ii, door) for r in f["runs"].values()]
+    serve_runs += list(san["serve"].values())
     path_runs = [main_run, *other_runs, rk, rg, rq, cp, *lm_runs, *serve_runs]
     one_pass_runs = [main_run, cp, *serve_runs]
     launches = {name: counted(name, runs) for name, runs in (
@@ -4505,6 +4912,7 @@ def main() -> int:
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
         "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
+        "sanitize": san,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

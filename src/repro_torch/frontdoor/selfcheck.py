@@ -2,8 +2,11 @@
 
 Port of ``repro/frontdoor/selfcheck.py``: the same runs over the port's
 server, client and engine, on the card unless ``--device cpu`` is given.
-``--sanitize`` needs the engine sanitizer, which is not ported yet
-(ROADMAP.md slice 7): it raises ``NotImplementedError``.
+``--sanitize`` arms the runtime sanitizer tier on every engine of the run
+(``repro_torch.analysis``: per-tick invariant checks at ``sync_every=2``,
+whose trip ends the run nonzero, and the event-loop stall detector), and
+requires the live-slot cut-zeroing check to have run; the plain, chaos and
+spec runs all take it.
 
 One process: a tiny-model engine behind a :class:`FrontDoorServer` on an
 ephemeral loopback port, three tenants (one speaking the engine's full
@@ -30,7 +33,7 @@ re-prefill steps a disconnect induces, so schedule drift under faults is
 expected behavior, not a transport bug.
 
     PYTHONPATH=src python -m repro_torch.frontdoor.selfcheck [--requests N] \
-        [--chaos | --spec-decode] [--device cpu]
+        [--chaos | --spec-decode] [--sanitize] [--device cpu]
 """
 from __future__ import annotations
 
@@ -119,8 +122,42 @@ async def _tenant(host, port, tenant, codec, requests, vocab, seed,
     return tenant, results, stats
 
 
-async def amain(requests: int = 3, device: str = "cuda") -> dict:
-    eng = build_engine(device=device)
+def _arm_sanitizers(eng):
+    """Attach the runtime sanitizer tier to a selfcheck engine: per-tick
+    invariant checks (a trip raises out of the server's tick loop, which
+    cancels every tenant and exits the selfcheck NONZERO via stop()) plus
+    the event-loop stall detector (diagnostic only — a first call that
+    builds or loads kernels blocks the loop legitimately)."""
+    from repro_torch.analysis.sanitize import (EngineSanitizer,
+                                               SlowCallbackDetector)
+    san = EngineSanitizer(eng)
+    eng.attach_sanitizer(san)
+    det = SlowCallbackDetector().install()
+    return san, det
+
+
+async def _report_sanitizers(san, det, *, require_cut_checks: bool) -> dict:
+    await det.stop()
+    print(f"[selfcheck] sanitize: {san.ticks} ticks checked "
+          f"(pool {san.counts['pool']}, slot-state "
+          f"{san.counts['slot_state']}, cut-zeroing "
+          f"{san.counts['cut_zeroing']}); {det.report()}")
+    if require_cut_checks:
+        assert san.counts["cut_zeroing"] > 0, (
+            "the live-slot-zeroing invariant was never exercised — no "
+            "tick observed a dead/live slot mix; the sanitize run is "
+            "vacuous")
+    return {"ticks": san.ticks, "counts": dict(san.counts),
+            "stalls": len(det.stalls), "max_lag_s": det.max_lag_s,
+            "report": det.report()}
+
+
+async def amain(requests: int = 3, device: str = "cuda",
+                sanitize: bool = False) -> dict:
+    eng = build_engine(device=device, sync_every=2 if sanitize else 8)
+    san = det = None
+    if sanitize:
+        san, det = _arm_sanitizers(eng)
     server = FrontDoorServer(
         eng,
         admission=AdmissionController(
@@ -144,6 +181,8 @@ async def amain(requests: int = 3, device: str = "cuda") -> dict:
     stats = outs[-1][2]          # last tenant's STATS snapshot
     await server.stop()
     assert server.tick_error is None, server.tick_error
+    if sanitize:
+        await _report_sanitizers(san, det, require_cut_checks=True)
 
     for name, results, _ in outs:
         assert len(results) == requests, (name, len(results))
@@ -169,12 +208,18 @@ async def amain(requests: int = 3, device: str = "cuda") -> dict:
 async def _sequential_run(eng: BatchedEngine, requests: int,
                           faults: FaultPlan | None, draft: str | None = None,
                           codec: str = BUCKET_SPEC, prompt_len=None,
-                          max_new: int = 4):
+                          max_new: int = 4, sanitize: bool = False):
     """One full sequential pass (every tenant, every request, one at a
     time, each speaking ``codec``) against ``eng``, which must be fresh;
     returns ({tenant: [token lists]} plus the final server stats under
-    the "_stats" key and the total streamed-token-preview count under
-    "_streamed", the stopped server)."""
+    the "_stats" key, the total streamed-token-preview count under
+    "_streamed" and, with ``sanitize``, the sanitizers' report under
+    "_sanitize", the stopped server).  With ``sanitize`` the sanitizers
+    are armed on ``eng`` here, in the running loop (build it with
+    ``sync_every=2``)."""
+    san = det = None
+    if sanitize:
+        san, det = _arm_sanitizers(eng)
     server = FrontDoorServer(
         eng,
         admission=AdmissionController(
@@ -197,20 +242,29 @@ async def _sequential_run(eng: BatchedEngine, requests: int,
     finally:
         await server.stop()
     assert server.tick_error is None, server.tick_error
+    if sanitize:
+        # sequential tenants leave the other slots empty while one
+        # decodes, so the cut probe always sees a dead/live mix here
+        tokens["_sanitize"] = await _report_sanitizers(
+            san, det, require_cut_checks=True)
     assert not eng.queue and eng.active == 0, "engine not drained"
     tokens["_stats"] = stats
     tokens["_streamed"] = streamed
     return tokens, server
 
 
-async def amain_chaos(requests: int = 3, device: str = "cuda") -> dict:
+async def amain_chaos(requests: int = 3, device: str = "cuda",
+                      sanitize: bool = False) -> dict:
+    sync = 2 if sanitize else 8
     print("[selfcheck] chaos: recording the fault-free sequential reference")
     ref, _ = await _sequential_run(
-        build_engine(spec=BUCKET_SPEC, device=device), requests, None)
+        build_engine(spec=BUCKET_SPEC, device=device, sync_every=sync),
+        requests, None, sanitize=sanitize)
     plan = chaos_plan()
     print(f"[selfcheck] chaos: replaying under {plan}")
     got, _ = await _sequential_run(
-        build_engine(spec=BUCKET_SPEC, device=device), requests, plan)
+        build_engine(spec=BUCKET_SPEC, device=device, sync_every=sync),
+        requests, plan, sanitize=sanitize)
     bad = []
     for name, _ in CHAOS_TENANTS:
         if got[name] != ref[name]:
@@ -234,7 +288,8 @@ async def amain_chaos(requests: int = 3, device: str = "cuda") -> dict:
     return got
 
 
-async def amain_spec(requests: int = 3, device: str = "cuda") -> dict:
+async def amain_spec(requests: int = 3, device: str = "cuda",
+                     sanitize: bool = False) -> dict:
     """The CI ``spec-smoke`` job: speculative decoding end-to-end over
     the front door.  Sequential tenants (schedule-independent occupancy,
     same reasoning as the chaos run) decode once on a vanilla
@@ -244,16 +299,19 @@ async def amain_spec(requests: int = 3, device: str = "cuda") -> dict:
     counters prove speculation actually happened (verify rounds ran,
     drafts were accepted/rejected, TOKENS frames streamed bursts)."""
     from repro_torch.serving.spec import SpecConfig
+    sync = 2 if sanitize else 8
     print("[selfcheck] spec: recording the non-speculative reference")
     ref, _ = await _sequential_run(
-        build_engine(spec=BUCKET_SPEC, device=device), requests, None)
+        build_engine(spec=BUCKET_SPEC, device=device, sync_every=sync),
+        requests, None, sanitize=sanitize)
     runs = {}
     for k in (2, 4):
         print(f"[selfcheck] spec: replaying with k={k} "
               f"(draft {SPEC_DRAFT!r}, pinned by the client handshake)")
-        eng = build_engine(spec=BUCKET_SPEC, device=device,
+        eng = build_engine(spec=BUCKET_SPEC, device=device, sync_every=sync,
                            spec_decode=SpecConfig(k=k, draft=SPEC_DRAFT))
-        got, _ = await _sequential_run(eng, requests, None, draft=SPEC_DRAFT)
+        got, _ = await _sequential_run(eng, requests, None, draft=SPEC_DRAFT,
+                                       sanitize=sanitize)
         runs[k] = got
         bad = [(name, ref[name], got[name]) for name, _ in CHAOS_TENANTS
                if got[name] != ref[name]]
@@ -293,21 +351,20 @@ def main(argv=None):
                          "decode over a draft/verify channel; outputs must "
                          "be bit-identical to the vanilla engine")
     ap.add_argument("--sanitize", action="store_true",
-                    help="the runtime sanitizer tier: not ported yet "
-                         "(ROADMAP.md slice 7), raises NotImplementedError")
+                    help="run the loopback tenants under the runtime "
+                         "sanitizer tier (per-tick engine invariants + "
+                         "event-loop stall detection); any invariant trip "
+                         "exits nonzero")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default: the card) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.sanitize:
-        raise NotImplementedError(
-            "--sanitize is not ported yet: the engine sanitizer comes with "
-            "ROADMAP.md slice 7 (tooling)")
+    kw = dict(device=args.device, sanitize=args.sanitize)
     if args.chaos:
-        asyncio.run(amain_chaos(args.requests, device=args.device))
+        asyncio.run(amain_chaos(args.requests, **kw))
     elif args.spec_decode:
-        asyncio.run(amain_spec(args.requests, device=args.device))
+        asyncio.run(amain_spec(args.requests, **kw))
     else:
-        asyncio.run(amain(args.requests, device=args.device))
+        asyncio.run(amain(args.requests, **kw))
     print("[selfcheck] PASS")
 
 

@@ -37,7 +37,17 @@ unless ``--device cpu`` is given; weights are random, drawn from
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         --reduced --frontdoor --port 0 --device cpu --codec "c3sl:R=4|int8"
 
-Not ported yet: ``--sanitize`` (ROADMAP.md slice 7).
+``--sanitize`` (``--engine`` and ``--frontdoor``) arms the per-tick
+engine invariant checks (``repro_torch.analysis.EngineSanitizer``: pool
+accounting, slot hygiene, live-slot cut zeroing); a trip raises out of the
+serving loop.  Under ``--frontdoor`` it also installs the event-loop stall
+detector and prints its report on stop.  The reference also turns on
+``jax_debug_nans``; serving runs no backward, so autograd's anomaly mode,
+its counterpart in the port, has nothing to check here::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+        --reduced --engine --kv-layout paged --device cpu \
+        --codec "c3sl:R=4|int8" --sanitize
 """
 from __future__ import annotations
 
@@ -134,6 +144,11 @@ def _build_engine(cfg, params, args):
                         preemption=args.preemption, kv_read=args.kv_read,
                         spec_decode=spec_decode)
     _pin(eng.codec, args.pin_R)
+    if args.sanitize:
+        from repro_torch.analysis import EngineSanitizer
+        eng.attach_sanitizer(EngineSanitizer(eng))
+        print("[sanitize] per-tick engine invariant checks armed (pool "
+              "accounting, slot hygiene, live-slot cut zeroing)", flush=True)
     return eng
 
 
@@ -188,6 +203,11 @@ def _run_engine(cfg, params, args):
           f"mean TTFT {sum(ttfts) / max(len(ttfts), 1) * 1e3:.1f}ms; "
           f"dispatches {eng.stats['dispatches']}")
     print("sample output:", done[0].out[:16])
+    if eng._sanitizer is not None:
+        san = eng._sanitizer
+        print(f"[sanitize] {san.ticks} ticks checked (pool "
+              f"{san.counts['pool']}, slot-state {san.counts['slot_state']}, "
+              f"cut-zeroing {san.counts['cut_zeroing']})")
 
 
 def _run_frontdoor(cfg, params, args):
@@ -208,6 +228,10 @@ def _run_frontdoor(cfg, params, args):
             default_policy=TenantPolicy(max_inflight=args.max_inflight)))
 
     async def serve():
+        detector = None
+        if args.sanitize:
+            from repro_torch.analysis import SlowCallbackDetector
+            detector = SlowCallbackDetector().install()
         host, port = await server.start()
         spec = eng.codec.spec() if eng.codec is not None else "none"
         print(f"[serve] front door on {host}:{port} arch={cfg.name} "
@@ -217,6 +241,9 @@ def _run_frontdoor(cfg, params, args):
         try:
             await asyncio.Event().wait()
         finally:
+            if detector is not None:
+                await detector.stop()
+                print(f"[sanitize] {detector.report()}", flush=True)
             await server.stop(drain=False)
 
     try:
@@ -380,6 +407,12 @@ def main(argv=None):
     ap.add_argument("--max-queue-depth", type=int, default=64,
                     help="server-wide backlog cap before BUSY shedding "
                          "(front door)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="runtime sanitizer tier (repro_torch.analysis): "
+                         "per-tick engine invariant checks (--engine/"
+                         "--frontdoor; a trip raises out of the serving "
+                         "loop) and event-loop stall diagnostics on the "
+                         "front door")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

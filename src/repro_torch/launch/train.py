@@ -42,16 +42,27 @@ payloads, one autograd graph.  Both stages run on ``--device``::
         --steps 4 --batch 16 --seq 16 --microbatches 2 --async-depth 2 \\
         --codec "c3sl:R=2 >> bwd:c3sl:R=2" --device cpu
 
-Not ported yet: the sanitizer tier (``--sanitize``), ROADMAP.md slice 7.
+``--sanitize`` arms the runtime sanitizer tier
+(``repro_torch.analysis.sanitize``) in both loops: autograd's anomaly mode
+with its NaN check around each step (the port of ``jax_debug_nans``; on for
+the step only, restored after it), the step wrapped in ``finite_outputs``
+(the port of checkify: every floating output checked, the first non-finite
+one named), and ``TrainSanitizer.check_step`` on the loss and grad norm
+after each step.  A trip raises ``SanitizerError`` naming the step::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 2 \
+        --device cpu --codec "c3sl:R=4|int8" --sanitize
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
 from repro_torch import codecs, transport
+from repro_torch.analysis.sanitize import TrainSanitizer, finite_outputs
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.data.pipeline import SyntheticTokenDataset, make_batch_iterator
@@ -125,10 +136,21 @@ def make_train_step(cfg, opt, codec, codec_params):
     return step
 
 
-def _refuse_sanitize(args):
-    if getattr(args, "sanitize", False):
-        raise NotImplementedError("--sanitize is not ported yet: it comes "
-                                  "with ROADMAP.md slice 7")
+def _arm_train_sanitizers(args):
+    """The --sanitize tier for the train loops: a ``TrainSanitizer``, whose
+    ``step_scope`` holds autograd's anomaly mode around a step, or None
+    when sanitize mode is off."""
+    if not args.sanitize:
+        return None
+    print("[sanitize] autograd anomaly mode (check_nan) + finite step "
+          "outputs + per-step finite checks armed", flush=True)
+    return TrainSanitizer()
+
+
+def _scope(train_san, step):
+    """The step's sanitizer scope (nothing without --sanitize)."""
+    return (train_san.step_scope(step) if train_san is not None
+            else contextlib.nullcontext())
 
 
 def _to_device(erasure, device):
@@ -144,9 +166,10 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
     ``params`` and ``codec_params`` replace the seeded inits (the tests
     start both packages from the same weights and keys), ``frontend`` the
     zero frontend batch.  A dict ``out``
-    receives the final ``params`` and ``opt_state``, the step table and the
-    codec, for a caller that goes on from there."""
-    _refuse_sanitize(args)
+    receives the final ``params`` and ``opt_state``, the step table, the
+    codec and the ``TrainSanitizer`` (None without ``--sanitize``), for a
+    caller that goes on from there."""
+    train_san = _arm_train_sanitizers(args)
     device = args.device
     if params is None:
         params = lm_lib.init_lm_params(args.seed, cfg, device=device)
@@ -180,8 +203,12 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
               f"corrupt={args.fault_corrupt} seed={args.fault_seed} "
               f"recovery={args.fault_mode}", flush=True)
 
-    step_fns = transport.build_link_program_table(
-        codec, codec_params, lambda c, p: make_train_step(cfg, opt, c, p))
+    def make_step(c, p):
+        step = make_train_step(cfg, opt, c, p)
+        return step if train_san is None else finite_outputs(step)
+
+    step_fns = transport.build_link_program_table(codec, codec_params,
+                                                  make_step)
 
     data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
     it = make_batch_iterator(data, args.batch, device=device)
@@ -211,9 +238,12 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
                       flush=True)
                 continue
         key = transport.link_program_key(codec)
-        params, opt_state, loss, gn, snr, bwd_snr = step_fns[key](
-            params, opt_state, batch, probe0, _to_device(erasure, device))
+        with _scope(train_san, step):
+            params, opt_state, loss, gn, snr, bwd_snr = step_fns[key](
+                params, opt_state, batch, probe0, _to_device(erasure, device))
         losses.append(loss)       # device value; one sync after the loop
+        if train_san is not None:
+            train_san.check_step(step, loss=loss, gnorm=gn)
         # the bytes this step put on the boundary, per direction
         if codec is None:
             wf = wb = 0
@@ -285,7 +315,8 @@ def run_standard(args, cfg, *, params=None, codec_params=None, out=None,
                         {"arch": cfg.name, "loss": losses[-1]})
     if out is not None:
         out.update(params=params, opt_state=opt_state, step_fns=step_fns,
-                   codec=codec, codec_params=codec_params)
+                   codec=codec, codec_params=codec_params,
+                   train_sanitizer=train_san)
     return losses
 
 
@@ -332,8 +363,8 @@ def run_pipeline(args, cfg, *, params=None, codec_params=None, out=None):
     device count: both stages go on ``args.device``.  ``params`` (the LM's
     own tree, ``init_lm_params``) and ``codec_params`` replace the seeded
     inits; a dict ``out`` receives the final ``params`` and ``opt_state``,
-    the step, the loss function and the codec."""
-    _refuse_sanitize(args)
+    the step, the loss function, the codec and the ``TrainSanitizer``."""
+    train_san = _arm_train_sanitizers(args)
     device = args.device
     full = params if params is not None else lm_lib.init_lm_params(
         args.seed, cfg, device=device)
@@ -370,6 +401,8 @@ def run_pipeline(args, cfg, *, params=None, codec_params=None, out=None):
     opt = adamw(args.lr)
     opt_state = opt.init(params)
     step_fn = make_pipeline_step(loss_fn, opt)
+    if train_san is not None:
+        step_fn = finite_outputs(step_fn)
 
     data = SyntheticTokenDataset(cfg.vocab_size, args.seq, seed=args.seed)
     it = make_batch_iterator(data, args.batch, device=device)
@@ -378,8 +411,11 @@ def run_pipeline(args, cfg, *, params=None, codec_params=None, out=None):
     for step in range(args.steps):
         b = next(it)
         batch = {"x": b["tokens"], "y": b["labels"]}
-        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        with _scope(train_san, step):
+            params, opt_state, loss, gn = step_fn(params, opt_state, batch)
         losses.append(loss)   # device value; one sync after the loop
+        if train_san is not None:
+            train_san.check_step(step, loss=loss, gnorm=gn)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"[pipeline] step {step:5d} loss {float(loss):.4f} "  # lint-ok: R3 log-gated (log_every cadence)
                   f"({time.time()-t0:.1f}s)", flush=True)
@@ -390,7 +426,7 @@ def run_pipeline(args, cfg, *, params=None, codec_params=None, out=None):
           f"wire fwd {wf:,d} B + bwd {wb:,d} B", flush=True)
     if out is not None:
         out.update(params=params, opt_state=opt_state, step=step_fn,
-                   loss_fn=loss_fn, codec=codec)
+                   loss_fn=loss_fn, codec=codec, train_sanitizer=train_san)
     return losses
 
 
@@ -442,7 +478,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "complete and pays the wire bytes")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--sanitize", action="store_true",
-                    help="not ported yet (ROADMAP.md slice 7)")
+                    help="runtime sanitizer tier (repro_torch.analysis."
+                         "sanitize): autograd anomaly mode with its NaN "
+                         "check around each step, every floating step "
+                         "output checked, and per-step loss/grad-norm "
+                         "finite checks (syncs every step)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="device the run is on ('cuda' or 'cpu')")

@@ -280,6 +280,46 @@ def _view(cache, pages, T):
     return {n: paging.gather_pages(cache[n], pages, T) for n in cache}
 
 
+def _written_view(cache, new, slots, T, *, pages, live):
+    """The (B, T, ...) view attention reads after ``_write_rows(cache, new,
+    slots, T, pages=pages, live=live)``, built without writing: the view of
+    the cache as it is, with each row that write would store in every
+    position of the view that reads its place (on the paged layout a slot
+    without pages reads page 0, which a live slot may own).  The decode
+    step's no-write mode."""
+    B = slots.shape[0]
+    dev = slots.device
+    slots = slots.long()
+    t = torch.arange(T, device=dev)
+    if pages is not None:
+        ps = next(iter(cache.values())).shape[1]
+        table = pages.long()
+        P = table.shape[1]
+        page = torch.gather(table, 1, torch.clamp(slots // ps, 0, P - 1)[:, None])[:, 0]
+        keep = slots < P * ps
+        if live is not None:
+            keep = keep & live
+        idx = page * ps + slots % ps
+        reads = table[:, t // ps] * ps + t % ps                   # (B, T)
+    else:
+        if live is None:
+            keep = torch.ones((B,), dtype=torch.bool, device=dev)
+        else:
+            keep = live & (slots < T)
+        b_idx = torch.arange(B, device=dev)
+        idx = b_idx * T + torch.clamp(slots, 0, T - 1)
+        reads = b_idx[:, None] * T + t[None, :]
+    hit = (reads[:, :, None] == idx[None, None, :]) & keep[None, None, :]
+    written = hit.any(-1)                                         # (B, T)
+    writer = torch.argmax(hit.to(torch.int32), dim=-1)            # (B, T)
+    view = _view(cache, pages, T)
+    out = {}
+    for n, leaf in view.items():
+        mask = written.reshape(B, T, *(1,) * (leaf.ndim - 2))
+        out[n] = torch.where(mask, new[n][:, 0][writer].to(leaf.dtype), leaf)
+    return out
+
+
 def decode_mask(pos_b, T: int, sliding_window):
     """(B, T) decode validity: linear caches admit written positions
     (``idx <= pos``), ring buffers the last ``min(pos + 1, T)`` writes."""
@@ -293,7 +333,8 @@ def decode_mask(pos_b, T: int, sliding_window):
 
 def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
                      rotary_dim, rope_theta=10000.0, sliding_window=None,
-                     pages=None, length=None, live=None, kv_read="gather"):
+                     pages=None, length=None, live=None, kv_read="gather",
+                     write=True):
     """One-token decode.  x (B,1,D); cache k/v (B,T,KV,hd) (T=window for
     SWA), or pooled (num_pages, ps, KV, hd) when ``pages`` is given.
     Returns (y (B,1,D), cache) with the cache written in place.
@@ -302,6 +343,10 @@ def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
     contiguous view and reuses the contiguous SDPA; ``"kernel"`` walks the
     page table inside the CUDA paged-attention kernel (its plain version on
     a CPU tensor), reading the same post-write pools.
+
+    ``write=False`` writes nothing: attention reads the view the write
+    would have left (``_written_view``), so ``y`` is the same.  The kernel
+    reads the pools themselves, so that mode takes the gather read only.
     """
     B = x.shape[0]
     paged = pages is not None
@@ -312,6 +357,10 @@ def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
         raise ValueError("kv_read='kernel' requires the paged cache layout "
                          "(the kernel is a page-table walk; contiguous "
                          "caches have no table to walk)")
+    if kv_read == "kernel" and not write:
+        raise ValueError("a decode step with write=False reads through "
+                         "kv_read='gather': the kernel reads the pools, "
+                         "which hold none of the step's rows")
     T = length if paged else cache["k"].shape[1]
     q, k, v = _qkv(p, x, num_heads, num_kv_heads, head_dim)
     pos_b = torch.as_tensor(pos, dtype=torch.int32,
@@ -327,13 +376,16 @@ def apply_gqa_decode(p, x, cache, pos, *, num_heads, num_kv_heads, head_dim,
         new = {"k": k_q, "v": v_q, "k_scale": k_s, "v_scale": v_s}
     else:
         new = {"k": k, "v": v}
-    _write_rows(cache, new, slots, T, pages=pages, live=live)
-    if kv_read == "kernel":
-        att = kops.paged_attention_decode(q, cache, pages, pos_b, length=T,
-                                          sliding_window=sliding_window,
-                                          compute_dtype=x.dtype)
-        return att @ p["w_o"], cache
-    view = _view(cache, pages, T)
+    if not write:
+        view = _written_view(cache, new, slots, T, pages=pages, live=live)
+    else:
+        _write_rows(cache, new, slots, T, pages=pages, live=live)
+        if kv_read == "kernel":
+            att = kops.paged_attention_decode(q, cache, pages, pos_b, length=T,
+                                              sliding_window=sliding_window,
+                                              compute_dtype=x.dtype)
+            return att @ p["w_o"], cache
+        view = _view(cache, pages, T)
     mask = decode_mask(pos_b, T, sliding_window)[:, None, None, :]
     if quant:
         y = _sdpa_quant(q, view["k"], view["k_scale"], view["v"],
@@ -471,11 +523,12 @@ def init_mla_cache(batch: int, length: int, kv_lora_rank: int, qk_rope_dim: int,
 
 def apply_mla_decode(p, x, cache, pos, *, num_heads, kv_lora_rank, qk_nope_dim,
                      qk_rope_dim, v_head_dim, rope_theta=10000.0, pages=None,
-                     length=None, live=None):
+                     length=None, live=None, write=True):
     """One-token absorbed-matrix decode: scores live in the kv_lora space.
     x (B,1,D); pos scalar or (B,); ``pages``/``length`` select the paged
     layout, ``live`` masks the cache writes.  Returns (y (B,1,D), cache)
-    with the new latents written in place."""
+    with the new latents written in place (nothing written with
+    ``write=False``: the read is the view the write would have left)."""
     B = x.shape[0]
     H = num_heads
     T = length if pages is not None else cache["c_kv"].shape[1]
@@ -484,9 +537,12 @@ def apply_mla_decode(p, x, cache, pos, *, num_heads, kv_lora_rank, qk_nope_dim,
     q_nope, q_rope, c_kv_new, k_pe_new = _mla_qc(
         p, x, pos_b[:, None], num_heads=H, qk_nope_dim=qk_nope_dim,
         qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
-    _write_rows(cache, {"c_kv": c_kv_new, "k_pe": k_pe_new}, pos_b, T,
-                pages=pages, live=live)
-    view = _view(cache, pages, T)
+    new = {"c_kv": c_kv_new, "k_pe": k_pe_new}
+    if write:
+        _write_rows(cache, new, pos_b, T, pages=pages, live=live)
+        view = _view(cache, pages, T)
+    else:
+        view = _written_view(cache, new, pos_b, T, pages=pages, live=live)
     c_kv, k_pe = view["c_kv"], view["k_pe"]
     w_uk = p["w_uk"].reshape(kv_lora_rank, H, qk_nope_dim)
     q_eff = torch.einsum("bhd,lhd->bhl", *promote(q_nope[:, 0], w_uk))  # (B,H,L)

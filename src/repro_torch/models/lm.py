@@ -254,9 +254,38 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
     return cache
 
 
+def _decode_kw(cache, paged, live, write):
+    return dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
+                pages_swa=cache.get("pages_swa"), live=live, write=write)
+
+
+def _decode_front(params, cache, tokens, pos, cfg: ModelConfig, kw, *,
+                  kv_read="gather", stop=None):
+    """The embedding and the superblocks before ``stop`` (all by default):
+    (B, 1, d).  The first-dense superblock reads through the gather."""
+    h = params["embed"][tokens.long()]
+    if cfg.first_dense_layers:
+        h, _ = stack_lib.apply_superblock_decode(params["first"], cache["first"],
+                                                 cfg, h, pos, **kw)
+    h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"], cfg, h,
+                                        pos, stop=stop, kv_read=kv_read, **kw)
+    return h
+
+
+def _mask_cut(h, live):
+    """(B, 1, d) → the (B, d) cut: a non-live row's feature is attention
+    over stale pages, zeroed so dead slots add exact zeros to the
+    superposition."""
+    B, _, d = h.shape
+    if live is not None:
+        h = torch.where(live[:, None, None], h, torch.zeros((), dtype=h.dtype,
+                                                            device=h.device))
+    return h.reshape(B, d)
+
+
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
                 codec=None, codec_params=None, paged=None, live=None,
-                return_cut=False, kv_read="gather"):
+                return_cut=False, kv_read="gather", write=True):
     """tokens (B, 1) int; pos scalar or (B,) int.  Returns (logits (B,1,V),
     cache) with the cache written in place.
 
@@ -269,38 +298,44 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     ``kv_read="kernel"`` routes the stacked superblocks' paged GQA reads
     through the CUDA paged-attention kernel; the first-dense superblock
     stays on the gather read, as in the reference.
+
+    ``write=False`` writes nothing into the cache, neither a position nor
+    a recurrent state, and returns the same logits and cut.  It reads
+    through the gather.
     """
-    h = params["embed"][tokens.long()]
-    kw = dict(memory=cache.get("memory"), paged=paged, pages=cache.get("pages"),
-              pages_swa=cache.get("pages_swa"), live=live)
-    if cfg.first_dense_layers:
-        h, _ = stack_lib.apply_superblock_decode(params["first"], cache["first"],
-                                                 cfg, h, pos, **kw)
-    kw["kv_read"] = kv_read
+    kw = _decode_kw(cache, paged, live, write)
     cut = None
     if codec is None:
-        h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"],
-                                            cfg, h, pos, **kw)
+        h = _decode_front(params, cache, tokens, pos, cfg, kw, kv_read=kv_read)
     else:
         n_cut = cfg.num_superblocks // 2
-        h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"],
-                                            cfg, h, pos, stop=n_cut, **kw)
-        B, _, d = h.shape
-        if live is not None:
-            # a non-live row's feature is attention over stale pages: zero
-            # it so dead slots add exact zeros to the superposition
-            h = torch.where(live[:, None, None], h, torch.zeros((), dtype=h.dtype,
-                                                                device=h.device))
-        cut = h.reshape(B, d)
+        h = _decode_front(params, cache, tokens, pos, cfg, kw, kv_read=kv_read,
+                          stop=n_cut)
+        cut = _mask_cut(h, live)
         payload = codec.encode(codec_params, cut)
-        h = codec.decode(codec_params, payload).reshape(B, 1, d)
+        h = codec.decode(codec_params, payload).reshape(h.shape)
         h, _ = stack_lib.apply_stack_decode(params["stack"], cache["stack"],
-                                            cfg, h, pos, start=n_cut, **kw)
+                                            cfg, h, pos, start=n_cut,
+                                            kv_read=kv_read, **kw)
     h = _apply_norm(cfg, params["final_norm"], h)
     logits = matmul(h, params["head"])
     if return_cut:
         return logits, cache, cut
     return logits, cache
+
+
+def decode_cut(params, cache, tokens, pos, cfg: ModelConfig, *, paged=None,
+               live=None):
+    """The (B, d_model) cut-layer feature that ``decode_step`` with a codec
+    hands to ``codec.encode``, bitwise, computed through the superblocks
+    before the cut only and writing nothing into the cache (the
+    sanitizer's probe: the reference's is a non-donating program whose
+    compiler drops everything after the cut; the port writes its caches
+    in place).  It reads through the gather."""
+    kw = _decode_kw(cache, paged, live, False)
+    h = _decode_front(params, cache, tokens, pos, cfg, kw,
+                      stop=cfg.num_superblocks // 2)
+    return _mask_cut(h, live)
 
 
 # ---------------------------------------------------------------------------

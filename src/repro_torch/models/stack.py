@@ -24,7 +24,10 @@ both layouts, and mlp, moe and cross keep nothing (cross re-reads the
 encoder's memory at every call, as the reference does).  The chunked
 prefill has a no-write mode (``write=False``), the speculative verify's:
 attention reads the pre-chunk cache and the chunk's own keys as always, and
-nothing is written, neither a cache position nor a recurrent state.  moe serves at
+nothing is written, neither a cache position nor a recurrent state.  So
+has the one-token decode step, the sanitizer's cut probe's: attention
+reads the view the step's write would have left, built beside the cache,
+and the recurrent state is computed and dropped.  moe serves at
 ``capacity_factor = num_experts``, so serving never drops a token copy.
 A recurrent kind's chunked prefill runs the one-token decode step position
 by position, committing state only where ``valid``, as the reference's
@@ -349,7 +352,10 @@ def _commit(cache, state):
 
 def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
                           memory=None, paged=None, pages=None, pages_swa=None,
-                          live=None, kv_read="gather"):
+                          live=None, kv_read="gather", write=True):
+    """One-token decode sublayer step: (residual update, cache) with the
+    cache written in place, or, with ``write=False``, nothing written
+    (neither a cache position nor a recurrent state) and the same update."""
     x = _apply_norm(cfg, p["norm"], h)
     if kind in ("mlp", "moe"):
         return _serve_ffn(kind, p, cfg, x), cache
@@ -361,13 +367,14 @@ def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
             # state commits only for live rows: a mid-prefill slot's state
             # must not advance on interleaved decode steps
             new = {k: _where_rows(live, n, cache[k]) for k, n in new.items()}
-        _commit(cache, new)
+        if write:
+            _commit(cache, new)
         return y, cache
     if kind == "mla":
         # kv_read="kernel" reaches GQA decode only: the latents stay on the
         # gather read, as in the reference (the engine warns about it)
         return attn_lib.apply_mla_decode(
-            p, x, cache, pos, live=live,
+            p, x, cache, pos, live=live, write=write,
             **_mla_args(cfg), **_paged_args(kind, cfg, paged, pages, pages_swa))
     if kind == "attn":
         return attn_lib.apply_gqa_decode(
@@ -375,14 +382,15 @@ def apply_sublayer_decode(kind: str, p, cache, cfg: ModelConfig, h, pos, *,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
             rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta,
             sliding_window=cfg.sliding_window, live=live,
-            kv_read=kv_read if paged is not None else "gather",
+            kv_read=kv_read if paged is not None else "gather", write=write,
             **_paged_args(kind, cfg, paged, pages, pages_swa))
     raise ValueError(kind)
 
 
 def apply_superblock_decode(p_sb, cache_sb, cfg: ModelConfig, h, pos, *,
                             pattern=None, memory=None, paged=None, pages=None,
-                            pages_swa=None, live=None, kv_read="gather"):
+                            pages_swa=None, live=None, kv_read="gather",
+                            write=True):
     pattern = pattern or cfg.block_pattern
     for li, layer in enumerate(pattern):
         for si, kind in enumerate(layer):
@@ -390,7 +398,7 @@ def apply_superblock_decode(p_sb, cache_sb, cfg: ModelConfig, h, pos, *,
             y, _ = apply_sublayer_decode(
                 kind, p_sb[key], cache_sb[key], cfg, h, pos, memory=memory,
                 paged=paged, pages=pages, pages_swa=pages_swa, live=live,
-                kv_read=kv_read)
+                kv_read=kv_read, write=write)
             h = h + y
     return h, cache_sb
 
@@ -410,16 +418,17 @@ def _check_carry(h_in, h_out, i: int):
 def apply_stack_decode(stacked, cache, cfg: ModelConfig, h, pos, *,
                        memory=None, paged=None, pages=None, pages_swa=None,
                        live=None, kv_read="gather", start: int = 0,
-                       stop: int | None = None):
+                       stop: int | None = None, write=True):
     """One-token decode through superblocks [start, stop) of the stack
     (all by default); cache leaves have the leading superblock dim and are
-    written in place.  Returns (h, cache)."""
+    written in place (not at all with ``write=False``).  Returns (h,
+    cache)."""
     stop = cfg.num_superblocks if stop is None else stop
     for i in range(start, stop):
         h_out, _ = apply_superblock_decode(
             _index(stacked, i), _index(cache, i), cfg, h, pos, memory=memory,
             paged=paged, pages=pages, pages_swa=pages_swa, live=live,
-            kv_read=kv_read)
+            kv_read=kv_read, write=write)
         _check_carry(h, h_out, i)
         h = h_out
     return h, cache

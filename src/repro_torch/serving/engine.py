@@ -83,8 +83,11 @@ boundaries collect (one stream watermark serves retire, evict and
 withdraw).  The legacy ``prefill_mode="decode"`` is a per-token host loop
 over ``decode_step`` (``step()``), slow by design: the baseline.
 
-Not ported yet, and raising ``NotImplementedError`` here: the sanitizer
-(``attach_sanitizer``, ROADMAP.md slice 7, tooling).
+The runtime sanitizer (``attach_sanitizer``, an
+``repro_torch.analysis.EngineSanitizer``): ``run()`` calls its ``on_tick``
+after each scheduler iteration, ``tick()`` before its trailing boundary
+(done-but-unretired slots still resident), and the legacy
+``prefill_mode="decode"`` loop never, as in the reference.
 """
 from __future__ import annotations
 
@@ -106,11 +109,6 @@ from repro_torch.models.paging import PagedLayout
 from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.spec import AdaptiveK, SpecConfig
-
-
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{slice_name}")
 
 
 def _codec_execution_mode(codec, device) -> str:
@@ -357,6 +355,8 @@ class BatchedEngine:
         self.finished: list[Request] = []
         self._tokens_decoded = 0
         self._dirty = True            # force the first boundary to run
+        # opt-in runtime invariant checks (repro_torch.analysis); None = off
+        self._sanitizer = None
         # the reference's keys, so stats line up with it.  Serving ships the
         # forward direction only (wire_bytes_bwd stays 0); a verify round
         # ships nothing forward, and its feedback payload plus the draft
@@ -783,7 +783,11 @@ class BatchedEngine:
         return ev
 
     def attach_sanitizer(self, sanitizer) -> None:
-        raise _not_ported("the engine sanitizer", "ROADMAP.md slice 7 (tooling)")
+        """Install per-tick invariant checks (an object with an
+        ``on_tick(engine)`` method — see
+        :class:`repro_torch.analysis.EngineSanitizer`).  A violated
+        invariant raises out of tick()/run(); pass None to detach."""
+        self._sanitizer = sanitizer
 
     @property
     def active(self) -> int:
@@ -803,6 +807,8 @@ class BatchedEngine:
             if not (self.queue or self.active):
                 break
             steps += self._tick_body(max_steps - steps)
+            if self._sanitizer is not None:
+                self._sanitizer.on_tick(self)
         self._boundary()
         return self.finished
 
@@ -817,6 +823,10 @@ class BatchedEngine:
         if not (self.queue or self.active):
             return False
         self._tick_body(self.sync_every)
+        if self._sanitizer is not None:
+            # before the trailing boundary: done-but-unretired slots are
+            # still resident, so the dead/live cut probe sees the mix
+            self._sanitizer.on_tick(self)
         self._boundary()
         return True
 

@@ -161,7 +161,20 @@ def test_fault_flags_refused_like_the_reference(flag):
     assert msgs["port"].startswith("fault injection drives the standard loop")
 
 
-def test_pipeline_sanitize_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
-        ttrain.main(["--reduced", "--pipeline", "--sanitize", "--steps", "1",
-                     "--device", "cpu"])
+def test_pipeline_sanitize_still_raises(capsys):
+    """What this test pinned as refused is ported now: ``--pipeline
+    --sanitize`` arms the pipeline loop's sanitizers (the line naming
+    them), gives the unarmed run's losses bitwise, checks every step, and
+    leaves autograd's anomaly mode off after the run."""
+    cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"))
+    argv = ["--reduced", "--pipeline", "--steps", "2", "--batch", "8",
+            "--seq", "16", "--microbatches", "2", "--device", "cpu"]
+    losses, out = {}, {}
+    for armed in (False, True):
+        args = ttrain.build_parser().parse_args(
+            argv + (["--sanitize"] if armed else []))
+        losses[armed] = ttrain.run_pipeline(args, cfg, out=out)
+    assert not torch.is_anomaly_enabled()
+    assert losses[True] == losses[False]
+    assert out["train_sanitizer"].steps_checked == 2
+    assert "[sanitize] autograd anomaly mode (check_nan)" in capsys.readouterr().out

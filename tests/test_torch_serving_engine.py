@@ -311,13 +311,30 @@ def test_control_plane_engine_matches_reference_engine(codec, kv_read):
 
 
 def test_unported_methods_raise():
-    """The sanitizer is the one refusal left (ROADMAP.md slice 7); withdraw
-    and the stream events are ported (tests/test_torch_preemption.py) and
-    answer an idle engine as the reference's does."""
-    eng = _port_engine("plain", "paged", "gather", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
-        eng.attach_sanitizer(None)
-    assert eng.withdraw(0) is None and eng.pop_stream_events() == []
+    """What this test pinned as refused is ported now: ``attach_sanitizer``
+    arms the engine sanitizer (``repro_torch.analysis``), whose checks run
+    each tick and leave the tokens as they were, and None detaches it
+    (tests/test_torch_sanitize.py holds it against the reference's).
+    Withdraw and the stream events answer an idle engine as the
+    reference's do."""
+    from repro_torch.analysis import EngineSanitizer
+    outs = {}
+    for armed in (False, True):
+        eng = _port_engine("plain", "paged", "gather", "c3sl:R=2|int8")
+        san = EngineSanitizer(eng)
+        if armed:
+            eng.attach_sanitizer(san)
+        for u, n in enumerate(LENS):
+            eng.submit(tengine.Request(uid=u, prompt=list(range(1, n + 1)),
+                                       max_new_tokens=6))
+        outs[armed] = {r.uid: r.out for r in eng.run()}
+        assert (san.ticks > 0 and min(san.counts.values()) > 0) == armed, \
+            san.counts
+    assert outs[True] == outs[False]
+    eng.attach_sanitizer(None)
+    assert eng._sanitizer is None
+    idle = _port_engine("plain", "paged", "gather", None)
+    assert idle.withdraw(0) is None and idle.pop_stream_events() == []
 
 
 def test_submit_rejects_what_the_reference_rejects():

@@ -203,9 +203,26 @@ def test_cli_prints_the_reference_lines():
 
 
 @pytest.mark.parametrize("flags", [["--sanitize"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
-        ttrain.main(["--reduced", "--steps", "1", "--device", "cpu", *flags])
+def test_unported_flags_raise(flags, capsys):
+    """What this test pinned as refused is ported now: ``--sanitize`` arms
+    the train loop's sanitizers, prints the line naming them, leaves the
+    log lines of an unarmed run as they were, and turns autograd's anomaly
+    mode off again when the run returns."""
+    argv = ["--reduced", "--steps", "1", "--device", "cpu", "--log-every", "1"]
+    outs = {}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)      # the same sums in the same order, both runs
+    try:
+        for armed in (False, True):
+            ttrain.main(argv + (flags if armed else []))
+            outs[armed] = capsys.readouterr().out.splitlines()
+    finally:
+        torch.set_num_threads(n)
+    assert not torch.is_anomaly_enabled()
+    assert outs[True][1] == ("[sanitize] autograd anomaly mode (check_nan) + "
+                             "finite step outputs + per-step finite checks armed")
+    strip = lambda ls: [re.sub(r"\|.*", "", ln) for ln in ls]  # noqa: E731
+    assert strip(outs[True][:1] + outs[True][2:]) == strip(outs[False])
 
 
 @pytest.mark.parametrize("seed,steps", [(0, (0, 1, 5)), (3, (2,))])
