@@ -400,6 +400,33 @@ Phases (any failure exits non-zero, and no result line is printed):
       ``check_family_run``.
    The armed tick and train step print beside the unarmed ones.
 
+19. The dry run's analytic half (``repro_torch.launch.dryrun``), after
+   ``free_cuda()``.
+   a. ``dryrun_one`` on ``meta`` at full width, bf16 params, for every
+      registered arch at decode_32k and for deepseek-7b and
+      deepseek-v2-lite-16b at train_4k, cut short past 40 s of host time
+      (the rest listed as left out; the CPU tests hold every arch's
+      analytic numbers to the reference's): params, counted FLOPs, ``model_flops``, the
+      useful ratio, argument bytes against 80 GB, the three roofline
+      terms at the H100's peaks and the dominant one, the seconds each;
+      ``torch.cuda.memory_allocated()`` the same before and after.
+   b. Phase 7's step (deepseek-7b, 8 of 30 layers, B 16, S 128, float32,
+      TF32 off, ``c3sl:R=4`` at the midpoint) dry-run on meta, then
+      ``dryrun.build_train_step`` on the card from the seed's weights
+      with ``c3sl:R=4,backend=pallas``: its first step under
+      ``FlopCounterMode``, the FLOPs by op equal to the meta count, the
+      argument bytes equal to the real tensors', 2 + 2 four-step
+      launches at (4, 4, 524288); 3 steps timed (CUDA events, host
+      included) against the roofline's ``compute_s`` at the float32 peak;
+      the peak memory against the argument bytes; then M = 2 from the same
+      weights: B1/B2 2 + 2 a microbatch at (2, 4, 524288), its groups;
+      the loss within 1e-5 relative of M = 1's; its activations (the
+      peak less the arguments and the gradient trees held: one at M = 1,
+      the sum and a microbatch's at M = 2) at most 0.75 of M = 1's.
+   c. ``pipeline_dryrun`` at phase 17's settings (B 16, M 4, depths 1 and
+      2, ``c3sl:R=4``): payloads, their bytes and the schedule's steps
+      equal to each phase 17 run's ``loss.last_call`` record.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -4487,6 +4514,274 @@ def print_sanitize(card, res):
     print(f"sanitize: phase seconds {res['seconds']:.1f}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 19: the dry run's analytic half on meta, against a real step
+# --------------------------------------------------------------------------
+
+# phase 7's batch as a dry-run shape (in SHAPES while 19b and 19c run)
+DRY_SHAPE = "lm_16x128"
+# 19a: decode_32k for every arch, train_4k for a dense and an MLA + MoE
+# arch (about 25 s of host time on the card's machine; the CPU tests hold
+# every arch's analytic numbers to the reference's), the sweep cut short
+# past DRY_SWEEP_BUDGET_S
+DRY_SWEEP_TRAIN = ("deepseek-7b", "deepseek-v2-lite-16b")
+DRY_SWEEP_BUDGET_S = 40.0
+# M = 2 against M = 1 from the same weights: the same rows in each C3-SL
+# group, the sums in another order (the matmuls over 8 rows, not 16)
+DRY_M2_LOSS_TOL = 1e-5
+# M = 2's activations (the peak less what was allocated before, the
+# arguments and the gradient trees held: one at M = 1, the sum and a
+# microbatch's at M = 2) at most this share of M = 1's: half the rows a
+# microbatch, with room for what does not halve
+DRY_M2_ACT_SHARE = 0.75
+
+
+@contextlib.contextmanager
+def dry_shape():
+    """DRY_SHAPE in ``SHAPES`` for the scope's length."""
+    from repro_torch.data.pipeline import SHAPES
+    SHAPES[DRY_SHAPE] = dict(seq_len=LM_SEQ, global_batch=LM_BATCH, kind="train")
+    try:
+        yield
+    finally:
+        del SHAPES[DRY_SHAPE]
+
+
+def dryrun_sweep() -> dict:
+    """19a: ``dryrun_one`` at full width for every registered arch at
+    decode_32k, then for DRY_SWEEP_TRAIN at train_4k, until
+    DRY_SWEEP_BUDGET_S of host time is spent; ``memory_allocated`` the
+    same before and after."""
+    import torch
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.launch import dryrun
+
+    combos = [(a, s) for s in ("decode_32k", "train_4k") for a in ALL_ARCHS]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runs, left_out = [], []
+    for arch, shape in combos:
+        if ((shape == "train_4k" and arch not in DRY_SWEEP_TRAIN)
+                or time.perf_counter() - t0 > DRY_SWEEP_BUDGET_S):
+            left_out.append(f"{arch} {shape}")
+            continue
+        t1 = time.perf_counter()
+        r = dryrun.dryrun_one(arch, shape, save=False)
+        check(r["status"] == "ok", f"phase 19a: {arch} {shape} {r['status']}")
+        runs.append({"arch": arch, "shape": shape,
+                     "seconds": time.perf_counter() - t1,
+                     **{k: r[k] for k in (
+                         "params_global", "params_active", "hlo_flops_per_device",
+                         "model_flops_global", "useful_flops_ratio",
+                         "fits_one_card", "roofline", "dominant")},
+                     "argument_bytes": r["per_device"]["argument_bytes"]})
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 == mem0, f"phase 19a: memory_allocated {mem0} -> {mem1}")
+    check(runs, "phase 19a: no combination ran")
+    return {"runs": runs, "left_out": left_out, "memory_allocated": [mem0, mem1],
+            "seconds": time.perf_counter() - t0}
+
+
+def dryrun_step(dev) -> dict:
+    """19b: phase 7's step (deepseek-7b, 8 of 30 layers, B 16, S 128,
+    float32, TF32 off, ``c3sl:R=4`` at the midpoint) dry-run on meta, then
+    ``dryrun.build_train_step`` on the card from the seed's weights with
+    LM_CODEC: the counted FLOPs by op equal to the meta count, the argument
+    bytes to the real tensors'; 2 + 2 four-step launches a step at (4, 4,
+    524288); LM_TIMED_STEPS steps timed (CUDA events, host included); the
+    peak memory; then M = 2 from the same weights: B1/B2 at G 2, the
+    microbatch's groups, 2 + 2 a microbatch; the loss within
+    DRY_M2_LOSS_TOL of M = 1's; the activations at most DRY_M2_ACT_SHARE
+    of M = 1's.  Launches counted from the first step to the last, read
+    after it.  Runs inside ``dry_shape()``."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import lm as lm_lib
+
+    cfg = lm_config()
+    G, R, D = LM_SHAPE
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_one(LM_ARCH, DRY_SHAPE, codec_kind="c3sl:R=4",
+                            save=False, cfg_override=cfg,
+                            param_dtype=torch.float32)
+    dry_s = time.perf_counter() - t0
+    args = lm_args(None)
+
+    def fresh(M):
+        params = lm_lib.init_lm_params(args.seed, cfg, device=dev)
+        codec, cp = train.make_codec(LM_CODEC, LM_SEQ * cfg.d_model,
+                                     max_R=LM_BATCH, device=dev)
+        opt, step = dryrun.build_train_step(cfg, codec, cp, num_microbatches=M)
+        return (params, opt.init(params), lm_batch(cfg, args, 0, dev)), step
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    real, step = fresh(1)
+    arg_bytes = dryrun.tree_bytes(real)
+    tree_bytes = sum(4 * t.numel() for t in tree_leaves(real[0]))
+    check(arg_bytes == dry["per_device"]["argument_bytes"],
+          f"phase 19b: argument bytes {arg_bytes} on the card, "
+          f"{dry['per_device']['argument_bytes']} on meta")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    circconv.reset_launch_counts()
+    out, flops, by_op = dryrun.count_flops(step, *real)
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated()
+    loss1 = float(out[2])
+    del out                    # the step returns the params and state it was given
+    shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+              for k, n in circconv.SHAPE_LAUNCHES.items()}
+    want_shapes = {f"{k}/{G}x{R}x{D}": 2 for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"phase 19b: shapes {shapes}, want {want_shapes}")
+    check_fft_route(route_counts(), 2, "phase 19b", route="fft4")
+    ops = set(by_op) | set(dry["flops_by_op"])
+    differ = {op: [by_op.get(op, 0), dry["flops_by_op"].get(op, 0)] for op in ops
+              if by_op.get(op, 0) != dry["flops_by_op"].get(op, 0)}
+    check(flops == dry["hlo_flops_per_device"] and not differ,
+          f"phase 19b: counted FLOPs {flops} on the card, "
+          f"{dry['hlo_flops_per_device']} on meta; by op (card, meta) {differ}")
+    check(math.isfinite(loss1), f"phase 19b: loss {loss1}")
+
+    def one():
+        step(*real)
+
+    step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS,
+                      hide_host=False)
+    del real, step, one
+    free_cuda()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base   # the twiddle tables kept per D
+
+    real, step = fresh(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = Counter(circconv.SHAPE_LAUNCHES)
+    loss2 = float(step(*real)[2])
+    torch.cuda.synchronize()
+    peak2 = torch.cuda.max_memory_allocated()
+    shapes2 = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+               for k, n in (circconv.SHAPE_LAUNCHES - before).items()}
+    # 2 + 2 a microbatch (forward and backward), at half the groups
+    want2 = {f"{k}/{G // 2}x{R}x{D}": 2 * 2 for k in ("bind_superpose", "unbind")}
+    check(shapes2 == want2, f"phase 19b: M = 2 shapes {shapes2}, want {want2}")
+    counts, by_kernel = dict(circconv.LAUNCHES), record_launches()
+    n = 2 * (1 + LM_TIMED_STEPS) + 2 * 2
+    check(counts == {"bind_superpose": n, "unbind": n},
+          f"phase 19b: launches {counts}, want {n} each")
+    del real, step
+    free_cuda()
+    gap = abs(loss2 - loss1) / abs(loss1)
+    check(gap <= DRY_M2_LOSS_TOL, f"phase 19b: M = 2 loss {loss2} vs M = 1 {loss1}")
+    act1 = peak1 - base - arg_bytes - tree_bytes
+    act2 = peak2 - base - left - arg_bytes - 2 * tree_bytes
+    check(act2 <= DRY_M2_ACT_SHARE * act1,
+          f"phase 19b: M = 2 activations {act2} B over {DRY_M2_ACT_SHARE} of "
+          f"M = 1's {act1} (peaks {peak2}, {peak1}; trees of {tree_bytes})")
+    compute_s = dry["roofline"]["compute_s"]
+    return {"arch": LM_ARCH, "layers": cfg.num_layers, "batch": LM_BATCH,
+            "seq": LM_SEQ, "codec": LM_CODEC, "dry": dry, "dry_s": dry_s,
+            "flops_card": flops, "flops_by_op_card": by_op,
+            "argument_bytes_card": arg_bytes, "shape_launches": shapes,
+            "shape_launches_m2": shapes2,
+            "launches": counts, "record_launches": by_kernel,
+            "loss_m1": loss1, "loss_m2": loss2, "loss_gap": gap,
+            "peak_m1": peak1, "peak_m2": peak2, "left_after_m1": left,
+            "base_bytes": base, "tree_bytes": tree_bytes,
+            "activations_m1": act1, "activations_m2": act2,
+            "step_ms": step_ms,
+            "timed_steps": LM_TIMED_STEPS,
+            "share_of_compute_bound": compute_s / (step_ms / 1e3)}
+
+
+def dryrun_pipeline(pipe) -> dict:
+    """19c: ``pipeline_dryrun`` at phase 17's settings against each of its
+    runs' ``loss.last_call`` record: payloads, their bytes and the
+    schedule's steps exactly."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for depth, run in pipe["runs"].items():
+        p = dryrun.pipeline_dryrun(LM_ARCH, R=4, num_microbatches=PIPE_MICROBATCHES,
+                                   shape_name=DRY_SHAPE, save=False,
+                                   codec_kind="c3sl:R=4", async_depth=depth)
+        got = {"payloads": p["payloads_per_step"],
+               "payload_bytes": p["payload_bytes_per_step"],
+               "steps": p["schedule_steps"]}
+        want = {k: run["call"][k] for k in got}
+        check(got == want, f"phase 19c depth {depth}: dry run {got}, "
+              f"phase 17's record {want}")
+        out[depth] = {"dry": p, "record": run["call"]}
+    return out
+
+
+def dryrun_phase(dev, pipe) -> dict:
+    """Phase 19: 19a, then 19b, then 19c."""
+    t0 = time.perf_counter()
+    sweep = dryrun_sweep()
+    with dry_shape():
+        step = dryrun_step(dev)
+        pipeline = dryrun_pipeline(pipe)
+    return {"sweep": sweep, "step": step, "pipeline": pipeline,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_dryrun(card, res):
+    sw, st = res["sweep"], res["step"]
+    print(f"phase 19: the dry run on meta (repro_torch.launch.dryrun), "
+          f"{len(sw['runs'])} combinations at full width in "
+          f"{sw['seconds']:.1f} s of host time, memory_allocated "
+          f"{sw['memory_allocated'][0]} -> {sw['memory_allocated'][1]} B; left "
+          f"out {sw['left_out'] or 'none'}", flush=True)
+    for r in sw["runs"]:
+        t = r["roofline"]
+        print(f"  dryrun {r['arch']} {r['shape']} bf16: params "
+              f"{r['params_global']:.4g} (active {r['params_active']:.4g}), "
+              f"counted FLOPs {r['hlo_flops_per_device']:.4g}, model_flops "
+              f"{r['model_flops_global']:.4g}, useful {r['useful_flops_ratio']:.4f}, "
+              f"args {r['argument_bytes'] / 1e9:.2f} GB vs 80 GB (fits "
+              f"{r['fits_one_card']}); roofline compute {t['compute_s']:.4g} s, "
+              f"memory {t['memory_s']:.4g} s, collective {t['collective_s']:.4g} s, "
+              f"dominant {r['dominant']}; {r['seconds']:.1f} s", flush=True)
+    d = st["dry"]
+    t = d["roofline"]
+    print(f"dryrun vs step {st['arch']} x{st['layers']} B {st['batch']} S "
+          f"{st['seq']} float32 (meta {st['dry_s']:.1f} s): counted FLOPs meta "
+          f"{d['hlo_flops_per_device']:,d} card {st['flops_card']:,d} (by op "
+          f"{d['flops_by_op']}); model_flops {d['model_flops_global']:.4g}, "
+          f"useful {d['useful_flops_ratio']:.4f}; argument bytes meta "
+          f"{d['per_device']['argument_bytes']:,d} card "
+          f"{st['argument_bytes_card']:,d}; launches {st['launches']} by shape "
+          f"(first step) {st['shape_launches']}", flush=True)
+    print(f"time [{card}] dryrun train step ({st['codec']}, M 1): "
+          f"{st['step_ms']:.1f} ms (median of {st['timed_steps']}, host "
+          f"included) against roofline compute_s {t['compute_s'] * 1e3:.1f} ms "
+          f"at the float32 peak ({st['share_of_compute_bound']:.1%} of the "
+          f"bound), memory_s {t['memory_s'] * 1e3:.2f} ms; peak "
+          f"{st['peak_m1'] / 1e9:.2f} GB against argument bytes "
+          f"{d['per_device']['argument_bytes'] / 1e9:.2f} GB; M 2: loss "
+          f"{st['loss_m2']:.6f} vs {st['loss_m1']:.6f} (rel {st['loss_gap']:.3g}, "
+          f"limit {DRY_M2_LOSS_TOL}), peak {st['peak_m2'] / 1e9:.2f} GB "
+          f"(two gradient trees of {st['tree_bytes'] / 1e9:.2f} GB), "
+          f"activations {st['activations_m2'] / 1e9:.2f} GB vs M 1's "
+          f"{st['activations_m1'] / 1e9:.2f} (limit {DRY_M2_ACT_SHARE} of "
+          f"them), B1/B2 {st['shape_launches_m2']}; {st['left_after_m1']} B "
+          "left from M 1's run",
+          flush=True)
+    for depth, p in res["pipeline"].items():
+        print(f"dryrun pipeline depth {depth}: {p['dry']['payloads_per_step']} "
+              f"payloads of {p['dry']['payload_shape']} "
+              f"({p['dry']['payload_bytes_per_step']:,d} B) over "
+              f"{p['dry']['schedule_steps']} steps, equal to phase 17's record "
+              f"{p['record']}", flush=True)
+    print(f"dryrun: phase seconds {res['seconds']:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4761,6 +5056,12 @@ def main() -> int:
     lap("sanitize")
     print_sanitize(card, san)
 
+    print("phase 19: the dry run's analytic half, against a real step", flush=True)
+    free_cuda()
+    dry = dryrun_phase(dev, pipe)
+    lap("dryrun")
+    print_dryrun(card, dry)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -4818,8 +5119,8 @@ def main() -> int:
     # in the VGG-16 main run, the control plane's and the serving runs of
     # phases 13-16 and 18 (its probes' among them), the direct ones' in the
     # main run, the four-step ones' in the six LM training runs (phases
-    # 7-12), the two pipeline runs (phase 17) and phase 18's four armed and
-    # unarmed train runs, the mixed-radix
+    # 7-12), the two pipeline runs (phase 17), phase 18's four armed and
+    # unarmed train runs and phase 19b's steps, the mixed-radix
     # one-pass ones' over every run; of these only phase 14's pixtral-12b
     # (D 5120) takes a mixed-radix width, so that sum must be its decode
     # steps and prefill chunks
@@ -4827,7 +5128,7 @@ def main() -> int:
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values(),
-               *san["train"]["runs"].values()]
+               *san["train"]["runs"].values(), dry["step"]]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
                               serve_ii, door) for r in f["runs"].values()]
     serve_runs += list(san["serve"].values())
@@ -4912,7 +5213,7 @@ def main() -> int:
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
         "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
-        "sanitize": san,
+        "sanitize": san, "dryrun": dry,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

@@ -51,8 +51,11 @@ def generate_keys(rng: torch.Generator, R: int, D: int, dtype=torch.float32,
     and only the sqrt(R-1) cross-talk remains, at the same cost.
 
     ``rng`` is a CPU ``torch.Generator``: the draw is made on the CPU and
-    moved to ``device``, so a seed gives the same keys on every device.
+    moved to ``device``, so a seed gives the same keys on every device.  On
+    ``meta`` nothing is drawn (the dry run's abstract keys).
     """
+    if torch.device(device).type == "meta":
+        return torch.empty((R, D), dtype=dtype, device="meta")
     k = torch.randn((R, D), generator=rng, dtype=torch.float32) * (D ** -0.5)
     return project_keys(k, unitary).to(device=device, dtype=dtype)
 

@@ -8,9 +8,12 @@ reference's exactly:
   * SyntheticTokenDataset: LM sequences from a deterministic successor
     table, so next-token loss is reducible.
 
+``input_specs(cfg, shape)`` gives the batches every dry run traces, as
+empty ``meta`` tensors (nothing allocated; the one carve-out for vlm/audio:
+precomputed patch/frame embeddings).
+
 Labels and tokens come as int64, the index type torch's embeddings and
-losses take (the reference's are int32; the values are equal).  The
-dry-run ``input_specs`` is not ported yet.
+losses take (the reference's are int32; the values are equal).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclasses.dataclass
@@ -72,3 +77,46 @@ def make_batch_iterator(dataset, batch_size: int, start_step: int = 0,
     while True:
         yield dataset.batch(batch_size, step, device=device)
         step += 1
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (meta tensors only: zero allocation)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k":    dict(seq_len=4096,    global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768,   global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32768,   global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524288,  global_batch=1,   kind="decode"),
+}
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, dtype=torch.bfloat16):
+    """Dry-run batch for (arch, input shape), on ``meta``.
+
+    train/prefill: {"tokens", "labels" (train only), ["frontend"]}; a VLM's
+    patches take ``frontend_seq`` of the total sequence.  decode: {"tokens"
+    (B, 1)}; the cache comes from ``lm.abstract_decode_cache``.
+    """
+    spec = SHAPES[shape_name]
+    B, S = spec["global_batch"], spec["seq_len"]
+
+    def meta(shape, dt=torch.int64):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if spec["kind"] == "decode":
+        return {"tokens": meta((B, 1))}
+    out = {}
+    if cfg.frontend and not cfg.is_encdec:
+        s_text = S - cfg.frontend_seq
+        out["tokens"] = meta((B, s_text))
+        out["frontend"] = meta((B, cfg.frontend_seq, cfg.frontend_dim), dtype)
+        if spec["kind"] == "train":
+            out["labels"] = meta((B, s_text))
+        return out
+    out["tokens"] = meta((B, S))
+    if cfg.is_encdec:
+        out["frontend"] = meta((B, cfg.frontend_seq, cfg.frontend_dim), dtype)
+    if spec["kind"] == "train":
+        out["labels"] = meta((B, S))
+    return out

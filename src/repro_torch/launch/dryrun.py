@@ -1,0 +1,388 @@
+"""One-card dry run: the analytic half of ``repro/launch/dryrun.py``.
+
+The reference lowers and compiles every (arch x input shape x mesh) against
+placeholder devices and reads XLA's artefacts.  The port builds the same
+step on torch's ``meta`` device, which allocates nothing, runs it once
+under ``torch.utils.flop_counter.FlopCounterMode`` and reports what the
+shapes alone determine: the counted matmul FLOPs (the reference's
+``hlo_flops_per_device`` counts dots; the FFTs and the circconv kernels
+count nothing on either side), ``model_flops``, the exact bytes of the
+step's arguments, and the three roofline terms against an H100's peaks.
+
+    # one combination, on the CPU (nothing is allocated; no card needed)
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
+        --shape train_4k --out build/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
+        --shape train_4k --codec "c3sl:R=4"
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+
+Each result lands in ``--out`` (default ``build/dryrun`` under the
+checkout), one JSON a combination.  XLA-only numbers (temp bytes, the
+compiled peak, collective bytes by op, the top-k wire bytes read from HLO)
+have no counterpart and are absent; the microbatch count is
+``force_microbatches`` or 1 (the reference's auto-tune loop reads XLA's
+memory analysis).  ``--mesh multi`` raises: the port runs on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+import traceback
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import codecs, transport
+from repro_torch.configs.archs import ALL_ARCHS
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.data.pipeline import SHAPES, input_specs
+from repro_torch.interop import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models import lm as lm_lib
+from repro_torch.optim import adamw
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "../../../build/dryrun")
+
+# NVIDIA H100 80GB HBM3 (SXM5) at its 700 W limit, dense rates without
+# sparsity, from NVIDIA's H100 Tensor Core GPU datasheet
+H100_PEAK_FLOPS = {
+    torch.bfloat16: 989e12,      # bf16 tensor cores
+    "tf32": 495e12,              # float32 matmuls on the TF32 tensor cores
+    torch.float32: 67e12,        # float32 outside the tensor cores
+}
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_HBM_BYTES = 80e9
+H100_NVLINK_BYTES_PER_S = 900e9  # NVLink 4, all links of one card
+
+
+def shape_adjusted_config(arch: str, shape_name: str) -> ModelConfig | None:
+    """Per-shape config variants; None = combination skipped (the
+    encoder-decoder's full-attention cross-attention at long_500k)."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k":
+        if cfg.is_encdec:
+            return None
+        if not cfg.attention_free:
+            # the sliding-window variant makes dense/hybrid archs sub-quadratic
+            cfg = dataclasses.replace(cfg, sliding_window=4096)
+    return cfg
+
+
+def make_codec(cfg: ModelConfig, shape_name: str, codec_spec: str, R: int,
+               quant_bits=None, unitary=False):
+    """The cut-layer codec (or per-direction ``SplitLink`` from a ``... >>
+    bwd:...`` spec) from a registry spec ("none" = off), and its params on
+    ``meta``."""
+    if codec_spec in (None, "", "none"):
+        return None, None
+    shape = SHAPES[shape_name]
+    B = shape["global_batch"]
+    if shape["kind"] == "decode":
+        D = cfg.d_model
+    else:
+        # cut-layer feature per sample = (S_total, d_model) flattened
+        D = shape["seq_len"] * cfg.d_model
+    c = transport.build_link_or_codec(codec_spec, quant_bits=quant_bits,
+                                      R=R, D=D, backend="fft",
+                                      unitary=unitary)
+    c = codecs.clamp_R(c, B if B >= 2 else 1)
+    return c, c.init(device="meta")
+
+
+def _peak_flops(dtype) -> float:
+    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        dtype = "tf32"
+    return H100_PEAK_FLOPS[dtype]
+
+
+def roofline_terms(flops, hbm_bytes, coll_bytes, n_chips, dtype=torch.bfloat16):
+    """Three roofline terms in seconds on one H100: the FLOPs at the peak
+    of ``dtype`` (a float32 matmul runs on the TF32 tensor cores only where
+    ``torch.backends.cuda.matmul.allow_tf32`` is on), the bytes at the HBM
+    rate, the collective bytes at the NVLink rate (the port's dry run, on
+    one card, passes 0).  The numbers are per device, so ``n_chips`` is
+    read by nothing: it stays for the reference's signature, which reads
+    it nowhere either."""
+    return {
+        "compute_s": flops / _peak_flops(dtype),
+        "memory_s": hbm_bytes / H100_HBM_BYTES_PER_S,
+        "collective_s": coll_bytes / H100_NVLINK_BYTES_PER_S,
+    }
+
+
+def model_flops(cfg: ModelConfig, shape_name: str) -> float:
+    """6*N_active*D tokens processed (training); decode: 2*N_active per token."""
+    spec = SHAPES[shape_name]
+    n_active = cfg.active_param_count()
+    if spec["kind"] == "train":
+        tokens = spec["global_batch"] * spec["seq_len"]
+        return 6.0 * n_active * tokens
+    if spec["kind"] == "prefill":
+        tokens = spec["global_batch"] * spec["seq_len"]
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * spec["global_batch"]  # one token per sequence
+
+
+def build_train_step(cfg: ModelConfig, codec=None, codec_params=None,
+                     num_microbatches: int = 1):
+    """Full training step: loss + grads (+ gradient accumulation) + AdamW.
+
+    ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``
+    runs where its tensors are (the card, the CPU or ``meta``).
+    Microbatching bounds peak activation memory: the batch is split into
+    ``num_microbatches`` chunks run one after another, their gradients
+    summed into a float32 tree.  From the second microbatch on, two
+    gradient trees are held (the sum and the microbatch's), as in the
+    reference's scan carry; only the activations shrink.  The update is
+    AdamW(1e-4) in place on ``params`` and ``opt_state`` (the reference
+    donates both to its compiled step; the numbers are those of
+    ``apply_updates``)."""
+    opt = adamw(1e-4)
+    M = num_microbatches
+
+    def train_step(params, opt_state, batch):
+        train = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(train)
+        acc = None
+        loss = 0.0
+        for m in range(M):
+            mb = batch if M == 1 else tree_map(
+                lambda x: x.reshape(M, x.shape[0] // M, *x.shape[1:])[m], batch)
+            lm = lm_lib.lm_loss(train, mb, cfg, codec=codec,
+                                codec_params=codec_params)
+            got = torch.autograd.grad(lm, leaves, allow_unused=True)
+            if any(g is None for g in got):
+                raise RuntimeError("a param leaf is not on the loss's graph")
+            if acc is None:
+                acc = [g.float() for g in got]
+            else:
+                for a, g in zip(acc, got):
+                    a.add_(g)
+            del got
+            loss = loss + lm.detach()
+        del train, leaves
+        if M > 1:
+            loss = loss / M
+            for g in acc:
+                g.div_(M)
+        opt.update_(tree_unflatten(params, acc), opt_state, params)
+        return params, opt_state, loss
+
+    return opt, train_step
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def count_flops(fn, *args):
+    """``fn(*args)`` once under ``FlopCounterMode``: (its output, the
+    counted FLOPs, the FLOPs by op)."""
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    by_op = {str(op): int(n) for op, n in fc.get_flop_counts()["Global"].items()}
+    return out, int(fc.get_total_flops()), by_op
+
+
+def abstract_step(cfg: ModelConfig, shape_name: str, codec, codec_params,
+                  param_dtype=torch.bfloat16, num_microbatches: int = 1):
+    """The step of ``shape_name``'s kind on ``meta``: (its arguments, the
+    callable).  train: the train step over (params, AdamW state, batch);
+    prefill: the last-token logits over (params, batch); decode: one
+    ``decode_step`` over (params, cache, tokens, pos)."""
+    spec = SHAPES[shape_name]
+    params = lm_lib.abstract_params(cfg, param_dtype)
+    # frontend embeddings in the params' dtype (the reference's default
+    # bf16 equals it at the default param_dtype; torch does not promote a
+    # mixed matmul)
+    batch = input_specs(cfg, shape_name, param_dtype)
+    if spec["kind"] == "train":
+        opt, train_step = build_train_step(cfg, codec, codec_params,
+                                           num_microbatches)
+        args = (params, opt.init(params), batch)
+        return args, train_step
+    if spec["kind"] == "prefill":
+        @torch.no_grad()
+        def prefill(params, batch):
+            # serving prefill returns the LAST-token logits (the full
+            # (B, S, V) tensor is never materialized for big vocabs)
+            logits, _ = lm_lib.lm_forward(params, batch, cfg, remat=False,
+                                          last_only=True)
+            return logits[:, -1, :]
+        return (params, batch), prefill
+    cache = lm_lib.abstract_decode_cache(cfg, spec["global_batch"],
+                                         spec["seq_len"], param_dtype)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        return lm_lib.decode_step(params, cache, tokens, pos, cfg,
+                                  codec=codec, codec_params=codec_params)
+
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return (params, cache, batch["tokens"], pos), serve_step
+
+
+def dryrun_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
+               codec_kind="none", R=4, quant_bits=None, unitary=False,
+               save=True, tag="baseline", param_dtype=torch.bfloat16,
+               cfg_override=None, force_microbatches=None, out=RESULTS_DIR):
+    """One (arch, shape) on one card, on ``meta``.  ``shape_name`` is a key
+    of ``SHAPES`` (a caller may add its own entry); ``cfg_override``
+    replaces the shape-adjusted config."""
+    if mesh_kind != "single":
+        raise ValueError(f"mesh {mesh_kind!r}: the port's dry run is of one "
+                         "card (mesh 'single'); it places nothing on a mesh")
+    cfg = cfg_override or shape_adjusted_config(arch, shape_name)
+    result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
+              "codec": codec_kind, "R": R}
+    if cfg is None:
+        result["status"] = "skipped"
+        result["reason"] = "long_500k unsupported (enc-dec full attention)"
+        return _save(result, out) if save else result
+
+    n_chips = 1
+    t0 = time.time()
+    codec, codec_params = make_codec(cfg, shape_name, codec_kind, R,
+                                     quant_bits, unitary)
+    num_microbatches = force_microbatches or 1
+    args, fn = abstract_step(cfg, shape_name, codec, codec_params,
+                             param_dtype, num_microbatches)
+    argument_bytes = tree_bytes(args)
+    _, flops, by_op = count_flops(fn, *args)
+    trace_s = time.time() - t0
+
+    mf = model_flops(cfg, shape_name)
+    hbm_floor = argument_bytes          # every argument read once
+    terms = roofline_terms(flops, hbm_floor, 0, n_chips, param_dtype)
+    result.update({
+        "status": "ok",
+        "n_chips": n_chips,
+        "device": "NVIDIA H100 80GB HBM3",
+        "param_dtype": str(param_dtype).replace("torch.", ""),
+        "num_microbatches": num_microbatches,
+        "trace_s": round(trace_s, 1),
+        "per_device": {"argument_bytes": argument_bytes},
+        "fits_one_card": argument_bytes <= H100_HBM_BYTES,
+        "hlo_flops_per_device": flops,
+        "flops_by_op": by_op,
+        "hbm_bytes_floor": hbm_floor,
+        "model_flops_global": mf,
+        "model_flops_per_device": mf / n_chips,
+        "useful_flops_ratio": (mf / n_chips) / flops if flops else None,
+        "roofline": terms,
+        "dominant": max(terms, key=terms.get),
+        "params_global": cfg.param_count(),
+        "params_active": cfg.active_param_count(),
+    })
+    return _save(result, out) if save else result
+
+
+def pipeline_dryrun(arch: str, *, R: int = 4, quant_bits=None, unitary=False,
+                    num_microbatches: int = 4, shape_name: str = "train_4k",
+                    tag: str = "pipeline", save: bool = True,
+                    codec_kind: str = "c3sl", async_depth: int = 1,
+                    cfg_override=None, out=RESULTS_DIR):
+    """The 2-stage pod pipeline's wire from shapes: a step sends
+    ``num_microbatches`` payloads of the forward codec's
+    ``payload_shape(mb)``, ``wire_bytes(mb)`` each, over
+    ``num_microbatches + async_depth`` schedule steps (the port's schedule,
+    ``transport.make_pod_pipeline_loss_fn``; its ``loss.last_call`` records
+    the same numbers as it runs).  ``codec_kind`` may be a ``... >>
+    bwd:...`` link spec; ``cfg_override`` replaces ``arch``'s config."""
+    cfg = cfg_override or get_config(arch)
+    spec = SHAPES[shape_name]
+    B, S = spec["global_batch"], spec["seq_len"]
+    mb = B // num_microbatches
+    D_flat = S * cfg.d_model
+
+    if codec_kind == "none":
+        codec = codecs.build("identity", D=D_flat)
+    else:
+        codec = codecs.clamp_R(
+            transport.build_link_or_codec(codec_kind, quant_bits=quant_bits,
+                                          R=R, D=D_flat, backend="fft",
+                                          unitary=unitary), mb)
+    link = isinstance(codec, transport.SplitLink)
+    fwd = codec.fwd.codec if link else codec
+    wire = fwd.wire_bytes(mb)
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": "single-pipeline",
+        "tag": tag, "codec": codec_kind if codec_kind != "none" else "identity",
+        # links report the FORWARD channel's R (SplitLink carries no bare R)
+        "R": getattr(codec.fwd.current if link else codec, "R", 1),
+        "quant": quant_bits,
+        "num_microbatches": num_microbatches, "async_depth": async_depth,
+        "status": "ok",
+        "schedule_steps": num_microbatches + async_depth,
+        "payloads_per_step": num_microbatches,
+        "payload_shape": list(fwd.payload_shape(mb)),
+        "payload_bytes": wire,
+        "payload_bytes_per_step": num_microbatches * wire,
+    }
+    if save:
+        os.makedirs(out, exist_ok=True)
+        name = f"{arch}_{shape_name}_pipeline_{tag}.json"
+        with open(os.path.join(out, name), "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+def _save(result, out=RESULTS_DIR):
+    os.makedirs(out, exist_ok=True)
+    name = f"{result['arch']}_{result['shape']}_{result['mesh']}_{result['tag']}.json"
+    with open(os.path.join(out, name), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--codec", default="none",
+                    help="registry spec, e.g. 'c3sl:R=4|int8' (see repro_torch.codecs)")
+    ap.add_argument("--R", type=int, default=4)
+    ap.add_argument("--quant", type=int, default=None)
+    ap.add_argument("--unitary", action="store_true")
+    ap.add_argument("--tag", default="baseline")
+    # parsed and ignored, as the reference's main does
+    ap.add_argument("--pipeline", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=RESULTS_DIR,
+                    help="directory for the JSON results")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        # one card: the single mesh only
+        combos = [(a, s, "single") for a in ALL_ARCHS for s in SHAPES]
+    else:
+        combos = [(args.arch, args.shape, args.mesh)]
+
+    failures = 0
+    for arch, shape_name, mesh_kind in combos:
+        try:
+            r = dryrun_one(arch, shape_name, mesh_kind, codec_kind=args.codec,
+                           R=args.R, tag=args.tag, quant_bits=args.quant,
+                           unitary=args.unitary, out=args.out)
+            status = r["status"]
+            extra = ""
+            if status == "ok":
+                ab = r["per_device"]["argument_bytes"]
+                extra = (f"args={ab/2**30:.2f}GiB dom={r['dominant']} "
+                         f"trace={r['trace_s']}s")
+            print(f"[dryrun] {arch} {shape_name} {mesh_kind}: {status} {extra}",
+                  flush=True)
+        except Exception:
+            failures += 1
+            print(f"[dryrun] {arch} {shape_name} {mesh_kind}: FAILED", flush=True)
+            traceback.print_exc()
+    sys.exit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

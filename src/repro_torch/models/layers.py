@@ -2,8 +2,9 @@
 
 Port of ``repro/models/layers.py``: the initializers take a
 ``torch.Generator`` (the draws land on the generator's device, so a
-generator on the card makes the weights there), and the norms, RoPE and the
-cross-entropy compute in float32 as the reference does.
+generator on the card makes the weights there) or a :class:`MetaRng` (empty
+``meta`` leaves, nothing drawn), and the norms, RoPE and the cross-entropy
+compute in float32 as the reference does.
 """
 from __future__ import annotations
 
@@ -15,7 +16,17 @@ import torch.nn.functional as F
 # init helpers
 # ---------------------------------------------------------------------------
 
+class MetaRng:
+    """What the initializers take in place of a ``torch.Generator`` on the
+    ``meta`` device, which has none: they draw nothing and make empty meta
+    leaves with the shapes, dtypes and tree a real init makes (the dry
+    run's abstract params, which allocate nothing)."""
+    device = torch.device("meta")
+
+
 def _normal(rng: torch.Generator, shape, scale: float, dtype):
+    if rng.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=rng, device=rng.device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 

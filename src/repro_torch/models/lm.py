@@ -52,8 +52,8 @@ from repro_torch.codecs.c3sl import sequence_group_decode, sequence_group_encode
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import tree_map
 from repro_torch.models import stack as stack_lib
-from repro_torch.models.layers import (dense_init, embed_init, matmul,
-                                       softmax_cross_entropy)
+from repro_torch.models.layers import (MetaRng, dense_init, embed_init,
+                                       matmul, softmax_cross_entropy)
 from repro_torch.models.stack import _apply_norm, _init_norm
 from repro_torch.transport.link import roundtrip
 
@@ -61,9 +61,11 @@ from repro_torch.transport.link import roundtrip
 ENC_PATTERN = (("attn", "mlp"),)
 
 
-def _generator(rng, device) -> torch.Generator:
-    if isinstance(rng, torch.Generator):
+def _generator(rng, device) -> torch.Generator | MetaRng:
+    if isinstance(rng, (torch.Generator, MetaRng)):
         return rng
+    if torch.device(device).type == "meta":
+        return MetaRng()
     return torch.Generator(device=device).manual_seed(int(rng))
 
 
@@ -71,7 +73,8 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
     """Random params with the reference's tree and scales.  ``rng`` is a
     seed (a generator on ``device`` is made from it, so the weights are
     drawn on the card by default) or a ``torch.Generator``, whose device
-    the weights are drawn on."""
+    the weights are drawn on.  On ``device="meta"`` nothing is drawn: the
+    leaves are empty meta tensors (:func:`abstract_params`)."""
     gen = _generator(rng, device)
     p: dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
@@ -87,6 +90,13 @@ def init_lm_params(rng, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         p["encoder"] = {"stack": stack_lib.init_stack(gen, _encoder_cfg(cfg), dtype),
                         "norm": _init_norm(cfg, dtype, device=gen.device)}
     return p
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """The params' tree, shapes and dtypes on ``meta``: no allocation, at
+    any width (the dry run's params; the reference's ``jax.eval_shape`` of
+    ``init_lm_params``)."""
+    return init_lm_params(MetaRng(), cfg, dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +261,22 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, length: int,
             cache["pages_swa"] = torch.zeros(
                 (batch, paged.pages_per_slot_swa), dtype=torch.int32,
                 device=device)
+    return cache
+
+
+def abstract_decode_cache(cfg: ModelConfig, batch: int, length: int,
+                          dtype=torch.float32):
+    """The decode cache on ``meta`` without params (the dry run's): the
+    stack's, the first-dense superblock's under "first", and an
+    encoder-decoder model's encoder output under "memory"."""
+    cache: dict[str, Any] = {"stack": stack_lib.init_stack_cache(
+        cfg, batch, length, dtype, device="meta")}
+    if cfg.first_dense_layers:
+        cache["first"] = stack_lib.init_superblock_cache(
+            cfg, batch, length, dtype, device="meta")
+    if cfg.is_encdec:
+        cache["memory"] = torch.empty((batch, cfg.frontend_seq, cfg.d_model),
+                                      dtype=dtype, device="meta")
     return cache
 
 
