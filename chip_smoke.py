@@ -426,6 +426,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    c. ``pipeline_dryrun`` at phase 17's settings (B 16, M 4, depths 1 and
       2, ``c3sl:R=4``): payloads, their bytes and the schedule's steps
       equal to each phase 17 run's ``loss.last_call`` record.
+20. The host-sync audit: the port's lint rule R3 held against the card.
+   Under ``torch.cuda.set_sync_debug_mode("warn")``, every
+   synchronizing-operation warning is recorded with the port's frames on
+   the stack (``SyncRecorder``): a. one decode window of the chunked
+   engine at phase 4's settings and model (deepseek-7b at full width and
+   depth), 8 live slots, ``sync_every`` steps; b. one speculative window
+   of one round at k 4 (phase 15a's link, tied head); c. one legacy-mode
+   ``step()``; each twice (the first after set-up, then the steady one),
+   the prefill chunks before them recorded too; d. ``run_standard`` on
+   phase 7's model (deepseek-7b x 8), two steps, each with its log line
+   (the records inside the loop counted a step).  Each site (the innermost
+   port frame) is printed with its count a step or round, and must be in
+   the port's R3 report (``lint_paths(src/repro_torch, rules={"R3"})``) as
+   a finding or a suppressed finding, or in
+   ``src/repro_torch/README.md``'s table of sync sites no static rule
+   sees; no record may pass through ``masked_write``, ``decode_step`` or
+   ``prefill_chunk`` (C9 stays fixed).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -4782,6 +4799,318 @@ def print_dryrun(card, res):
     print(f"dryrun: phase seconds {res['seconds']:.1f}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 20: the host-sync audit (the port's lint rule R3 against the card)
+# --------------------------------------------------------------------------
+
+PORT_SRC = ROOT / "src" / "repro_torch"
+# each request's budget: no slot finishes inside the audited windows, rounds
+# or steps, so all 8 slots stay live
+AUDIT_NEW = 48
+# run_standard's steps under the recorder; its loop's sites are counted a step
+AUDIT_LM_STEPS = 2
+# the step path's functions that must never sync (C9 stays fixed)
+NO_SYNC_FUNCS = ("masked_write", "decode_step", "prefill_chunk")
+# the README section whose table lists the sync sites no static rule sees
+ACCEPTED_HEADING = "Sync sites no static rule sees"
+
+
+class SyncRecorder:
+    """Within the block, ``torch.cuda.set_sync_debug_mode("warn")``; each
+    "synchronizing CUDA operation" warning is kept with the port's frames on
+    the stack when it was raised (innermost first: (path from the repo root,
+    line, function)) and ``tag(frames)``'s value, ``frames`` the raw frame
+    objects innermost first.  Other warnings pass through."""
+
+    def __init__(self, tag=None):
+        self.tag = tag
+        self.records = []
+        self._rel = {}
+
+    def _port_path(self, filename):
+        if filename not in self._rel:
+            try:
+                rel = Path(filename).resolve().relative_to(ROOT)
+            except ValueError:
+                rel = None
+            self._rel[filename] = (str(rel) if rel is not None
+                                   and rel.parts[:2] == ("src", "repro_torch")
+                                   else None)
+        return self._rel[filename]
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return self._show(message, category, filename, lineno, file, line)
+        raw, f = [], sys._getframe(1)
+        while f is not None:
+            raw.append(f)
+            f = f.f_back
+        frames = [(p, fr.f_lineno, fr.f_code.co_name) for fr in raw
+                  if (p := self._port_path(fr.f_code.co_filename)) is not None]
+        self.records.append({"frames": frames,
+                             "tag": None if self.tag is None else self.tag(raw)})
+        del raw
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._hook
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def sync_sites(records, keep=lambda tag: True) -> dict:
+    """{"path:line": {"count", "func", "via"}} over the records whose tag
+    ``keep`` accepts and that have a port frame: a site is the innermost
+    port frame; ``via``, the port functions outward from it."""
+    sites = {}
+    for r in records:
+        if not r["frames"] or not keep(r["tag"]):
+            continue
+        path, line, func = r["frames"][0]
+        s = sites.setdefault(f"{path}:{line}", {
+            "count": 0, "func": func,
+            "via": [f"{fn} ({p.rsplit('/', 1)[-1]}:{ln})"
+                    for p, ln, fn in r["frames"][1:4]]})
+        s["count"] += 1
+    return sites
+
+
+def through_no_sync(records) -> list:
+    """The records raised inside one of ``NO_SYNC_FUNCS`` (any port frame)."""
+    return [r for r in records
+            if any(fn in NO_SYNC_FUNCS for _, _, fn in r["frames"])]
+
+
+def r3_spans(report, read) -> dict:
+    """{path: [(first line, last line, "finding" | "suppressed")]} of the
+    port's R3 report; a finding covers its construct's lines (a call split
+    over lines raises from the line of its method name).  ``read(path)``
+    gives a file's source."""
+    import ast
+    trees, spans = {}, {}
+    for kind, found in (("finding", report.findings),
+                        ("suppressed", report.suppressed)):
+        for f in found:
+            if f.rule != "R3":
+                continue
+            if f.path not in trees:
+                trees[f.path] = ast.parse(read(f.path))
+            end = max((n.end_lineno for n in ast.walk(trees[f.path])
+                       if getattr(n, "lineno", None) == f.line
+                       and getattr(n, "col_offset", None) == f.col), default=f.line)
+            spans.setdefault(f.path, []).append((f.line, end, kind))
+    return spans
+
+
+def accepted_sync_sites(readme: str) -> set:
+    """{(path, stripped source line)} from the README's table under
+    ``ACCEPTED_HEADING``: its first two columns, each in backquotes."""
+    out, inside = set(), False
+    for line in readme.splitlines():
+        if line.startswith("#"):
+            inside = ACCEPTED_HEADING in line
+            continue
+        m = re.match(r"\|\s*`([^`]+)`\s*\|\s*`(.+?)`\s*\|", line) if inside else None
+        if m:
+            out.add((m[1], m[2].replace("\\|", "|").strip()))
+    return out
+
+
+def sync_verdicts(sites, spans, accepted, read) -> dict:
+    """{"path:line": "R3 finding" | "R3 suppressed" | "README table" | None}."""
+    out = {}
+    for key in sites:
+        path, line = key.rsplit(":", 1)
+        line = int(line)
+        hit = [k for lo, hi, k in spans.get(path, ()) if lo <= line <= hi]
+        if hit:
+            out[key] = "R3 " + ("finding" if "finding" in hit else "suppressed")
+        else:
+            src = read(path).splitlines()
+            code = src[line - 1].strip() if 0 < line <= len(src) else ""
+            out[key] = "README table" if (path, code) in accepted else None
+    return out
+
+
+def _settled(eng):
+    """Admit every queued request and run their prefill chunks (the
+    engine's boundary and ``_prefill_one_chunk``, as ``tick()`` runs
+    them), so every slot decodes next."""
+    eng._boundary()
+    while eng._pending_prefill():
+        eng._prefill_one_chunk()
+    eng._boundary()
+
+
+def audit_serving(dev) -> dict:
+    """20a-c on phase 4's model: the chunked engine's decode window (8 live
+    slots, ``sync_every`` steps), a speculative window of one round at k
+    ``SPEC_K`` (tied head, phase 15a's link), and a legacy-mode ``step()``,
+    each twice (the first after the engine's set-up, the second the
+    steady one), under ``SyncRecorder``; the prefill chunks before them
+    are recorded too, for the no-sync check."""
+    import torch
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.spec import SpecConfig
+    cfg, params = serve_model(torch.float32, dev)
+    prompts = serve_prompts(SERVE_ENGINE["num_slots"], cfg.vocab_size)
+    runs = {}
+    plans = (("a_window", "step", {}, SERVE_ENGINE["sync_every"]),
+             ("b_spec_round", "round", dict(codec=SPEC_LINK, spec_decode=SpecConfig(
+                 k=SPEC_K, draft_head="tied")), SPEC_K),
+             ("c_legacy_step", "step", dict(prefill_mode="decode"), None))
+    for key, unit, over, n in plans:
+        eng = make_engine(params, cfg, "kernel", **over)
+        for u, p in enumerate(prompts):
+            eng.submit(Request(uid=u, prompt=p, max_new_tokens=AUDIT_NEW))
+        rec = {"prefill": SyncRecorder()}
+        if n is not None:
+            with rec["prefill"]:
+                _settled(eng)
+        units = []
+        for rnd in ("first", "steady"):
+            torch.cuda.synchronize()
+            rounds0 = eng.stats["spec_rounds"]
+            with SyncRecorder() as r:
+                if n is None:
+                    eng.step()
+                    done = 1
+                else:
+                    done = eng._decode_window(n)
+                torch.cuda.synchronize()
+            if unit == "round":
+                done = eng.stats["spec_rounds"] - rounds0
+            live = (eng.active if n is None else
+                    int((eng.state["active"] & ~eng.state["done"]).sum()))
+            rec[rnd] = r
+            units.append(done)
+            check(live == SERVE_ENGINE["num_slots"] and done >= 1,
+                  f"phase 20 {key} {rnd}: {live} live slots, {done} {unit}s")
+        runs[key] = {"units": units, "unit": unit,
+                     "records": {k: v.records for k, v in rec.items()}}
+        del eng
+        free_cuda()
+    del params
+    free_cuda()
+    return runs
+
+
+def audit_training(dev) -> dict:
+    """20d: ``run_standard`` on phase 7's model for ``AUDIT_LM_STEPS`` steps,
+    each with its log line, under ``SyncRecorder``; a record is tagged
+    with the loop's step index when the loop's frame is inside the loop,
+    else None (the set-up before the loop and the losses' deferred
+    conversion after it)."""
+    import ast
+    from repro_torch.launch import train
+    tree = ast.parse(Path(train.__file__).read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_standard")
+    loop = next(n for n in ast.walk(fn) if isinstance(n, ast.For))
+    lo, hi = loop.lineno, loop.end_lineno
+    train_file = str(Path(train.__file__).resolve())
+
+    def tag(raw):
+        for f in raw:
+            if f.f_code.co_name == "run_standard" and \
+                    str(Path(f.f_code.co_filename).resolve()) == train_file:
+                return f.f_locals.get("step") if lo <= f.f_lineno <= hi else None
+        return None
+
+    args = lm_args(None, extra=["--steps", str(AUDIT_LM_STEPS)])
+    with SyncRecorder(tag) as r:
+        losses = train.run_standard(args, lm_config())
+    check(len(losses) == AUDIT_LM_STEPS and all(map(math.isfinite, losses)),
+          f"phase 20d: losses {losses}")
+    free_cuda()
+    return {"units": [1] * AUDIT_LM_STEPS, "unit": "step", "loop_lines": [lo, hi],
+            "losses": losses, "records": {"run": r.records}}
+
+
+def sync_audit_phase(dev) -> dict:
+    """Phase 20 (see the module docstring): record (``audit_serving``,
+    ``audit_training``), then hold every recorded site to the port's R3
+    report or the README's table, and the step path's functions to no
+    sync at all."""
+    from repro_torch.analysis.lint import lint_paths
+    t0 = time.perf_counter()
+    runs = audit_serving(dev)
+    runs["d_lm_step"] = audit_training(dev)
+    report = lint_paths([PORT_SRC], rules={"R3"}, root=ROOT)
+
+    def read(path):
+        return (ROOT / path).read_text(encoding="utf-8")
+
+    spans = r3_spans(report, read)
+    accepted = accepted_sync_sites(read("src/repro_torch/README.md"))
+    out = {}
+    for key, run in runs.items():
+        recs = run["records"]
+        if key == "d_lm_step":
+            parts = {f"step {i}": sync_sites(recs["run"], lambda t, i=i: t == i)
+                     for i in range(AUDIT_LM_STEPS)}
+            everything = recs["run"]
+            in_loop = [r for r in everything if r["tag"] is not None]
+        else:
+            parts = {k: sync_sites(recs[k]) for k in ("first", "steady")}
+            everything = [r for k in ("prefill", "first", "steady") for r in recs[k]]
+            in_loop = [r for k in ("first", "steady") for r in recs[k]]
+        sites = sync_sites(in_loop)
+        verdicts = sync_verdicts(sites, spans, accepted, read)
+        bad = through_no_sync(everything)
+        out[key] = {"unit": run["unit"], "units": run["units"], "parts": parts,
+                    "sites": sites, "verdicts": verdicts,
+                    "no_sync_violations": [r["frames"][:4] for r in bad],
+                    "outside_loop": len(everything) - len(in_loop),
+                    **{k: run[k] for k in ("losses", "loop_lines") if k in run}}
+    res = {"runs": out, "r3": {"findings": len(report.findings),
+                               "suppressed": len(report.suppressed)},
+           "accepted": sorted(f"{p}: {c}" for p, c in accepted),
+           "seconds": time.perf_counter() - t0}
+    for key, r in out.items():
+        unseen = [s for s, v in r["verdicts"].items() if v is None]
+        check(not unseen, f"phase 20 {key}: sync sites neither in the port's R3 "
+              f"report nor in the README's table: {unseen}")
+        check(not r["no_sync_violations"], f"phase 20 {key}: a sync inside "
+              f"{NO_SYNC_FUNCS}: {r['no_sync_violations'][:3]}")
+    return res
+
+
+def print_sync_audit(card, res):
+    print(f"phase 20: the host-sync audit, torch.cuda.set_sync_debug_mode"
+          f"(\"warn\"): a-c {SERVE_ARCH} full width and depth ({SERVE_CODEC}, "
+          f"kernel read, 8 live slots), d phase 7's model ({LM_ARCH} x "
+          f"{LM_LAYERS} of 30 layers, B {LM_BATCH}, S {LM_SEQ}); port R3: "
+          f"{res['r3']['findings']} findings, {res['r3']['suppressed']} "
+          f"suppressed; README table: {len(res['accepted'])} sites", flush=True)
+    for key, r in res["runs"].items():
+        names = list(r["parts"])
+        print(f"  sync {key}: {r['units']} {r['unit']}s in {names}; "
+              f"{len(r['sites'])} sites, {sum(s['count'] for s in r['sites'].values())} "
+              f"syncs; {r['outside_loop']} more in the prefill, set-up or "
+              f"after the loop (held only to none inside "
+              f"{', '.join(NO_SYNC_FUNCS)}: none)", flush=True)
+        for site, s in sorted(r["sites"].items(), key=lambda kv: -kv[1]["count"]):
+            counts = [r["parts"][p].get(site, {}).get("count", 0) for p in names]
+            per = ", ".join(f"{c / u:g}" for c, u in zip(counts, r["units"]))
+            print(f"  sync [{card}] {key} {site} {s['func']}: {counts} in "
+                  f"{names} ({per} a {r['unit']}); {r['verdicts'][site]}; via "
+                  f"{' < '.join(s['via']) or '-'}", flush=True)
+    print(f"sync audit: phase seconds {res['seconds']:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5062,6 +5391,12 @@ def main() -> int:
     lap("dryrun")
     print_dryrun(card, dry)
 
+    print("phase 20: the host-sync audit", flush=True)
+    free_cuda()
+    audit = sync_audit_phase(dev)
+    lap("sync_audit")
+    print_sync_audit(card, audit)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -5213,7 +5548,7 @@ def main() -> int:
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
         "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
-        "sanitize": san, "dryrun": dry,
+        "sanitize": san, "dryrun": dry, "sync_audit": audit,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

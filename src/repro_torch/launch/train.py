@@ -156,7 +156,7 @@ def _scope(train_san, step):
 def _to_device(erasure, device):
     if erasure is None:
         return None
-    return {k: torch.from_numpy(v).to(device) for k, v in erasure.items()}
+    return {k: torch.from_numpy(v).to(device) for k, v in erasure.items()}  # lint-ok: R3 the fault plan's keep masks, drawn on the host (numpy, the reference's bit for bit) and uploaded once a step, only under --fault-*
 
 
 def run_standard(args, cfg, *, params=None, codec_params=None, out=None,

@@ -80,8 +80,10 @@ def _adam_core(lr, b1, b2, eps, weight_decay):
     def corrections(count):
         lr_t = lr(count) if callable(lr) else lr
         cf = count.float()
-        c1 = 1 - torch.pow(torch.tensor(b1, device=cf.device), cf)
-        c2 = 1 - torch.pow(torch.tensor(b2, device=cf.device), cf)
+        # the bases filled on the device: a torch.tensor of a host number
+        # would be a blocking host-to-device copy in every step
+        c1 = 1 - torch.pow(torch.full((), b1, device=cf.device), cf)
+        c2 = 1 - torch.pow(torch.full((), b2, device=cf.device), cf)
         return lr_t, c1, c2
 
     def upd(m, v, p, lr_t, c1, c2):

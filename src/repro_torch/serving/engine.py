@@ -410,11 +410,11 @@ class BatchedEngine:
     # ------------------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # lint-ok: R3 host-built inputs uploaded at a host boundary (the legacy step's tokens, pos and live mask; the slot state and page table at admit and retire), not inside a window
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # lint-ok: R3 TTFT stamp: once a chunk that completes a prompt, so the first token exists before its time is taken
 
     def _init_state(self):
         """Device-resident slot state: advanced by the decode and prefill
@@ -443,7 +443,7 @@ class BatchedEngine:
         return st
 
     def _host_state(self) -> dict:
-        return {k: v.cpu().numpy().copy() for k, v in self.state.items()}
+        return {k: v.cpu().numpy().copy() for k, v in self.state.items()}  # lint-ok: R3 the boundary's one host copy of the slot state (admit, retire, stream), once a tick
 
     def _make_programs(self, codec, codec_params) -> dict:
         """One codec's program set: the decode window, the chunked-prefill
@@ -489,7 +489,7 @@ class BatchedEngine:
             slot finishes.  Returns (steps executed, state)."""
             i = 0
             while i < n:
-                live_any, done_any = torch.stack(
+                live_any, done_any = torch.stack(  # lint-ok: R3 the window's live/done flags, one read a step: the decode path's only per-step host read; B6 (a CUDA graph of the decode step) removes it
                     [(state["active"] & ~state["done"]).any(),
                      state["done"].any()]).tolist()
                 if not live_any or (stop_on_done and done_any):
@@ -630,12 +630,12 @@ class BatchedEngine:
             i = 0
             totals = torch.zeros((3,), dtype=torch.int64, device=dev)
             while i < n_rounds:
-                if not bool((state["active"] & ~state["done"]).any()):
+                if not bool((state["active"] & ~state["done"]).any()):  # lint-ok: R3 any slot live, one read a round; B6 (a CUDA graph of the decode step) removes it
                     break
                 state, counts = round_fn(state)
                 totals = totals + counts
                 i += 1
-            acc, rej, rol = totals.tolist()
+            acc, rej, rol = totals.tolist()  # lint-ok: R3 the window's totals, one read a window; B6 (a CUDA graph of the decode step) removes it
             return i, acc, rej, rol, state
 
         return spec_window_fn
@@ -906,7 +906,7 @@ class BatchedEngine:
             # a slot finished while the page pool was starving the head of
             # the queue: retire it from this host sync and free its pages
             st = self._host_state()
-            if bool(np.any(st["active"] & ~st["done"])):
+            if bool(np.any(st["active"] & ~st["done"])):  # lint-ok: R3 host copy of the slot state (numpy): no device read
                 self.stats["eos_early_exits"] += 1
             self._collect_stream(st)
             if self._retire_done(st):
@@ -954,7 +954,7 @@ class BatchedEngine:
             valid[i, :len(seg)] = True
             slot.ingested += len(seg)
             completes[i] = slot.ingested >= len(slot.feed)
-        if not valid.any():
+        if not valid.any():  # lint-ok: R3 the chunk's host-built mask (numpy): no device read
             return
         bucket = self._bucket()
         self.state = self._programs[bucket]["prefill"](
@@ -965,7 +965,7 @@ class BatchedEngine:
         self._account_fwd_bytes(self._chunk_wire_bytes())
         if bucket is not None:
             self.r_served[bucket] += 1
-        if completes.any():
+        if completes.any():  # lint-ok: R3 the chunk's host-built mask (numpy): no device read
             # the completing call commits the row's first token: stamp TTFT
             # once the token exists on the device, not when it was enqueued
             self._sync()
@@ -991,8 +991,8 @@ class BatchedEngine:
             if slot.req.t_first is None and st["out_len"][i] > 0:
                 slot.req.t_first = now
             if st["done"][i]:
-                n = int(st["out_len"][i])
-                slot.req.out = [int(t) for t in st["out_buf"][i, :n]]
+                n = int(st["out_len"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
+                slot.req.out = [int(t) for t in st["out_buf"][i, :n]]  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
                 slot.req.done = True
                 self.finished.append(slot.req)
                 self._tokens_decoded += n
@@ -1011,9 +1011,9 @@ class BatchedEngine:
         speculative state so the next resident starts clean."""
         if "accepted" not in st:
             return
-        req.accepted += int(st["accepted"][i])
-        req.rejected += int(st["rejected"][i])
-        req.rollbacks += int(st["rollbacks"][i])
+        req.accepted += int(st["accepted"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
+        req.rejected += int(st["rejected"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
+        req.rollbacks += int(st["rollbacks"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
         st["accepted"][i] = st["rejected"][i] = st["rollbacks"][i] = 0
         st["draft_feat"][i, :] = 0
 
@@ -1026,11 +1026,11 @@ class BatchedEngine:
             if slot.req is None:
                 continue
             uid = slot.req.uid
-            n = int(st["out_len"][i])
+            n = int(st["out_len"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
             mark = self._stream_mark.get(uid, 0)
             if n > mark:
                 self.stream_events.append(
-                    (uid, mark, [int(t) for t in st["out_buf"][i, mark:n]]))
+                    (uid, mark, [int(t) for t in st["out_buf"][i, mark:n]]))  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
                 self._stream_mark[uid] = n
 
     def _evict(self, i: int, st):
@@ -1041,8 +1041,8 @@ class BatchedEngine:
         and greedy decode resumes identically."""
         slot = self.slots[i]
         req = slot.req
-        n = int(st["out_len"][i])
-        req.out = [int(t) for t in st["out_buf"][i, :n]]
+        n = int(st["out_len"][i])  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
+        req.out = [int(t) for t in st["out_buf"][i, :n]]  # lint-ok: R3 host copy of the slot state (numpy, from _host_state): no device read
         req.evictions += 1
         self.stats["evictions"] += 1
         self._fold_spec_counters(i, req, st)
@@ -1135,7 +1135,7 @@ class BatchedEngine:
         (B, ...)).  Paged attn and mla pools are left alone: reads past a
         slot's written positions are masked, so stale pages are
         invisible."""
-        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)  # lint-ok: R3 the admitted rows' index, uploaded at admission (a boundary, not a step)
         for key, axis in (("stack", 1), ("first", 0)):
             for name, sub in self.cache.get(key, {}).items():
                 if (self.paged is not None
@@ -1213,7 +1213,7 @@ class BatchedEngine:
         self._account_fwd_bytes(self._step_wire_bytes())
         if bucket is not None:
             self.r_served[bucket] += 1
-        nxt = nxt.cpu().numpy()
+        nxt = nxt.cpu().numpy()  # lint-ok: R3 the legacy mode's one read a step by design (prefill as decode, one host sync a token: the baseline the chunked path beats)
         for i, s in enumerate(self.slots):
             if s.req is None:
                 continue
@@ -1223,7 +1223,7 @@ class BatchedEngine:
                 s.in_prompt += 1
             # the last prompt token's logits give the first generated token
             if not fed_prompt or s.in_prompt == len(s.feed):
-                tok = int(nxt[i])
+                tok = int(nxt[i])  # lint-ok: R3 the picks' host copy (numpy, after the one .cpu() a step): no device read
                 s.req.out.append(tok)
                 if s.req.t_first is None:
                     s.req.t_first = time.monotonic()

@@ -24,6 +24,18 @@ from repro_torch.configs import base as tconfigs  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced engines are many small ops; under the suite's parallel
+    workers torch's intra-op threads oversubscribe the cores, so this
+    module runs on one (its comparisons hold there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OVERRIDES = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=128,
                  num_heads=4, num_kv_heads=2, head_dim=32)
 STAT_KEYS = ("dispatches", "decode_steps", "prefill_chunks",

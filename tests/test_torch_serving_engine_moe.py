@@ -32,6 +32,18 @@ from repro_torch.configs import base as tconfigs  # noqa: E402
 from repro_torch.interop import params_from_numpy, tree_leaves  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced MoE and MLA engines are many small ops; under the suite's
+    parallel workers torch's intra-op threads oversubscribe the cores,
+    so this module runs on one (its comparisons hold there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PHI, DSV2 = "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b"
 STAT_KEYS = ("dispatches", "decode_steps", "prefill_chunks",
              "payload_wire_bytes", "wire_bytes_fwd", "wire_bytes_bwd")

@@ -42,6 +42,18 @@ from repro_torch.models import paging as tpaging  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
 from repro_torch.models import stack as tstack  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced recurrent decode steps are many small ops; under the
+    suite's parallel workers torch's intra-op threads oversubscribe the
+    cores, so this module runs on one (its comparisons hold there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # float32 on both sides; XLA:CPU and PyTorch sum in other orders
 STEP_TOL = 1e-5          # one module step's outputs and state, abs + rel
 LOGIT_TOL = 2e-5         # max |logit difference| / max |logit|

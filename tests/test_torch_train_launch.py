@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro import checkpoint as jckpt  # noqa: E402
 from repro.configs import base as jconfigs  # noqa: E402
@@ -39,6 +40,18 @@ from repro_torch.models import lm as tlm  # noqa: E402
 LOSS_RTOL = 1e-4
 
 STEP = re.compile(r"^step +(\d+) (?:loss ([-\d.]+) gnorm [-\d.]+(.*?) \||SKIPPED)")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced steps are many small ops; under the suite's parallel workers
+    torch's intra-op threads oversubscribe the cores, so this module runs
+    on one (its comparisons hold there: the same losses, wire bytes and
+    checkpoints)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _args(*argv):
@@ -344,3 +357,39 @@ def test_in_place_update_equals_the_functional_one(opt_name):
         opt.update_(gi, si, pi)
     for a, b in zip(tree_leaves((pf, sf)), tree_leaves((pi, si))):
         assert torch.equal(a, b)
+
+
+class _HostData(TorchDispatchMode):
+    """Counts ``aten.lift_fresh``: a tensor made from host data
+    (``torch.tensor``), which on the card is a blocking host-to-device
+    copy."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.lift_fresh.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("method", ["update_", "update"])
+@pytest.mark.parametrize("opt_name", ["adamw", "adam"])
+def test_optimizer_step_uploads_nothing_from_the_host(opt_name, method):
+    """The bias corrections fill their bases on the device: the Adam step
+    makes no tensor from host data (ROADMAP C14: two ``torch.tensor(b,
+    device=...)`` a step, each a blocking host-to-device copy that
+    ``chip_smoke.py`` phase 20 saw in every LM train step)."""
+    from repro_torch import optim
+    params = {"a": torch.ones(5, 7), "b": [torch.full((3,), 2.0)]}
+    opt = getattr(optim, opt_name)(1e-2)
+    state = opt.init(params)
+    grads = {"a": torch.full((5, 7), 0.5), "b": [torch.ones(3)]}
+    with _HostData() as host:
+        for _ in range(2):
+            if method == "update_":
+                opt.update_(grads, state, params)
+            else:
+                _, state = opt.update(grads, state, params)
+    assert host.n == 0
