@@ -402,7 +402,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 19. The dry run's analytic half (``repro_torch.launch.dryrun``), after
    ``free_cuda()``.
-   a. ``dryrun_one`` on ``meta`` at full width, bf16 params, for every
+   a. ``dryrun_one`` on ``meta`` on one card (mesh "card") at full width,
+      bf16 params, for every
       registered arch at decode_32k and for deepseek-7b and
       deepseek-v2-lite-16b at train_4k, cut short past 40 s of host time
       (the rest listed as left out; the CPU tests hold every arch's
@@ -443,6 +444,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``src/repro_torch/README.md``'s table of sync sites no static rule
    sees; no record may pass through ``masked_write``, ``decode_step`` or
    ``prefill_chunk`` (C9 stays fixed).
+21. The mesh and the sharding rules on DTensor (``launch.mesh``,
+   ``sharding.rules``, ``sharding.constraints``).  The card's machine has
+   one GPU: the mesh is one rank, and multi-rank correctness is held by
+   the CPU tests on 4 gloo ranks (a printed line says so).
+   a. Phase 19b's step (``dryrun.build_train_step``, AdamW 1e-4, M 1,
+      deepseek-7b x 8, B 16, S 128, float32, ``c3sl:R=4,backend=pallas``)
+      on a one-rank NCCL mesh (data 1, model 1), made and destroyed here:
+      every param, both AdamW moments and the batch DTensors placed by
+      the rules, the step under ``set_mesh`` (the activation constraint,
+      the codec on each rank's rows, the attention on its heads); 1 + 3
+      steps from the seed's weights, the last 3 timed; the first loss
+      within 1e-6 relative of 19b's plain step, the params' fingerprints
+      (per leaf: the float64 sum, and 1024 values spread over the leaf)
+      after the steps within 2e-5 of each leaf's max (the sum: of the sum
+      of |value|); B1/B2 2 + 2 a step at (4, 4, 524288).
+   b. On ``meta``: deepseek-7b at its full 30 layers, phase 7's shape and
+      dtype, per-device argument bytes on one card and over (data 4,
+      model 1), (2, 2) and (1, 4) against 80 GB; the ten archs over the
+      reference's single (16 x 16) and multi (2 x 16 x 16) meshes as 19a
+      runs them on one card, cut short past 40 s;
+      ``torch.cuda.memory_allocated()`` the same before and after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -4584,7 +4606,7 @@ def dryrun_sweep() -> dict:
             left_out.append(f"{arch} {shape}")
             continue
         t1 = time.perf_counter()
-        r = dryrun.dryrun_one(arch, shape, save=False)
+        r = dryrun.dryrun_one(arch, shape, "card", save=False)
         check(r["status"] == "ok", f"phase 19a: {arch} {shape} {r['status']}")
         runs.append({"arch": arch, "shape": shape,
                      "seconds": time.perf_counter() - t1,
@@ -4624,7 +4646,7 @@ def dryrun_step(dev) -> dict:
     cfg = lm_config()
     G, R, D = LM_SHAPE
     t0 = time.perf_counter()
-    dry = dryrun.dryrun_one(LM_ARCH, DRY_SHAPE, codec_kind="c3sl:R=4",
+    dry = dryrun.dryrun_one(LM_ARCH, DRY_SHAPE, "card", codec_kind="c3sl:R=4",
                             save=False, cfg_override=cfg,
                             param_dtype=torch.float32)
     dry_s = time.perf_counter() - t0
@@ -4671,6 +4693,8 @@ def dryrun_step(dev) -> dict:
 
     step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS,
                       hide_host=False)
+    # the params after 1 + LM_TIMED_STEPS steps, for phase 21a's sharded step
+    kept = fingerprints(real[0])
     del real, step, one
     free_cuda()
     torch.cuda.synchronize()
@@ -4712,7 +4736,7 @@ def dryrun_step(dev) -> dict:
             "peak_m1": peak1, "peak_m2": peak2, "left_after_m1": left,
             "base_bytes": base, "tree_bytes": tree_bytes,
             "activations_m1": act1, "activations_m2": act2,
-            "step_ms": step_ms,
+            "step_ms": step_ms, "fingerprints": kept,
             "timed_steps": LM_TIMED_STEPS,
             "share_of_compute_bound": compute_s / (step_ms / 1e3)}
 
@@ -5111,6 +5135,255 @@ def print_sync_audit(card, res):
     print(f"sync audit: phase seconds {res['seconds']:.1f}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 21: the mesh and the sharding rules on DTensor
+# --------------------------------------------------------------------------
+
+# the sharded step's leaves against the plain step's: per leaf, a spread
+# slice elementwise within this share of the leaf's max |value|, the
+# float64 sum within it of the sum of |value| (the CPU tests' figure)
+SHARD_LEAF_TOL = 2e-5
+SHARD_LOSS_TOL = 1e-6       # relative, the first step's loss
+FINGERPRINT_POINTS = 1024
+# 21b: phase 7's model at its full 30 layers over four cards
+SHARD_MESHES = [(4, 1), (2, 2), (1, 4)]
+CARD_HBM_BYTES = 80e9
+
+
+def fingerprints(tree) -> dict:
+    """Per leaf (by key path), on the host in float64: the sum, the sum of
+    |value|, the max |value| and FINGERPRINT_POINTS values spread over the
+    flattened leaf.  A DTensor leaf is read through ``to_local()``: on a
+    one-rank mesh that is the whole leaf."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    out = {}
+    for name, t in zip(leaf_names(tree), tree_leaves(tree)):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        flat = t.detach().reshape(-1)
+        step = max(1, flat.numel() // FINGERPRINT_POINTS)
+        d = flat.double()
+        out[name] = {"sum": float(d.sum()), "abs_sum": float(d.abs().sum()),
+                     "max": float(d.abs().max()),
+                     "points": flat[::step][:FINGERPRINT_POINTS].double().cpu()}
+        del d
+    return out
+
+
+def fingerprint_gaps(got: dict, want: dict) -> dict:
+    """Per leaf: the slice's max gap over the leaf's max, the sum's gap over
+    the sum of |value|."""
+    import torch
+    check(sorted(got) == sorted(want), f"fingerprint leaves {sorted(got)} "
+          f"vs {sorted(want)}")
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        out[k] = {"points": float((g["points"] - w["points"]).abs().max())
+                  / max(w["max"], 1e-30),
+                  "sum": abs(g["sum"] - w["sum"]) / max(w["abs_sum"], 1e-30),
+                  "bitwise": bool(torch.equal(g["points"], w["points"])
+                                  and g["sum"] == w["sum"])}
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_group(backend="nccl"):
+    """A process group of one rank (this process) on a free localhost port,
+    destroyed on the way out so that later phases run as before."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_step(dev, plain) -> dict:
+    """21a: phase 19b's step (``dryrun.build_train_step``, AdamW 1e-4, M 1,
+    deepseek-7b x 8, B 16, S 128, float32, LM_CODEC) with every param, the
+    AdamW moments and the batch DTensors on a one-rank NCCL mesh (data 1,
+    model 1) placed by the rules, under ``set_mesh``: the same seed's
+    weights and batch; 1 + LM_TIMED_STEPS steps, the last LM_TIMED_STEPS
+    timed; the first step's loss and the params' fingerprints after the
+    steps against 19b's plain step (``plain``); B1 and B2 launched inside
+    it at (4, 4, 524288), counted from the first step to the last."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.sharding import rules
+
+    cfg = lm_config()
+    G, R, D = LM_SHAPE
+    args = lm_args(None)
+    kind = torch.device(dev).type
+    if kind == "cuda":
+        torch.cuda.set_device(0)        # the one rank's card, before the mesh
+    with one_rank_group("nccl" if kind == "cuda" else "gloo"):
+        mesh = mesh_lib.make_host_mesh(1, 1, device_type=kind)
+        whole = lm_lib.init_lm_params(args.seed, cfg, device=dev)
+        specs = rules.param_shardings(whole, mesh)
+        params = rules.distribute_tree(whole, specs, mesh)
+        del whole
+        codec, cp = train.make_codec(LM_CODEC, LM_SEQ * cfg.d_model,
+                                     max_R=LM_BATCH, device=dev)
+        opt, step = dryrun.build_train_step(cfg, codec, cp)
+        opt_state = opt.init(params)        # the moments at the params' placements
+        check(rules.opt_state_shardings(opt_state, mesh)["m"] == specs,
+              "phase 21a: the moments' specs differ from the params'")
+        batch = lm_batch(cfg, args, 0, dev)
+        batch = rules.distribute_tree(batch, rules.batch_shardings(batch, mesh),
+                                      mesh)
+        placed = sum(1 for t in tree_leaves(params) if hasattr(t, "placements"))
+        n_leaves = len(tree_leaves(params))
+        torch.cuda.synchronize()
+        with mesh_lib.set_mesh(mesh):
+            circconv.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = step(params, opt_state, batch)[2]
+            loss1 = float(loss.full_tensor())
+            first_s = time.perf_counter() - t0
+
+            def one():
+                step(params, opt_state, batch)
+
+            step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS,
+                              hide_host=False)
+        torch.cuda.synchronize()
+        counts, by_kernel = dict(circconv.LAUNCHES), record_launches()
+        shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+                  for k, n in circconv.SHAPE_LAUNCHES.items()}
+        got = fingerprints(params)
+        del params, opt_state, batch, step, one, loss
+    free_cuda()
+    n = 2 * (1 + LM_TIMED_STEPS)
+    want_shapes = {f"{k}/{G}x{R}x{D}": n for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"phase 21a: shapes {shapes}, want {want_shapes}")
+    check(counts == {"bind_superpose": n, "unbind": n},
+          f"phase 21a: launches {counts}, want {n} each")
+    check(placed == n_leaves, f"phase 21a: {placed} of {n_leaves} param leaves "
+          "placed on the mesh")
+    gap = abs(loss1 - plain["loss_m1"]) / abs(plain["loss_m1"])
+    check(gap <= SHARD_LOSS_TOL, f"phase 21a: loss {loss1} vs the plain step's "
+          f"{plain['loss_m1']} (rel {gap})")
+    gaps = fingerprint_gaps(got, plain["fingerprints"])
+    worst = {k: max(v["points"], v["sum"]) for k, v in gaps.items()}
+    bad = {k: v for k, v in worst.items() if v > SHARD_LEAF_TOL}
+    check(not bad, f"phase 21a: leaves past {SHARD_LEAF_TOL}: {bad}")
+    return {"arch": LM_ARCH, "layers": cfg.num_layers, "batch": LM_BATCH,
+            "seq": LM_SEQ, "codec": LM_CODEC, "mesh": {"data": 1, "model": 1},
+            "placed_leaves": placed, "loss": loss1, "loss_plain": plain["loss_m1"],
+            "loss_gap": gap, "leaf_gap": max(worst.values()),
+            "bitwise_leaves": sum(v["bitwise"] for v in gaps.values()),
+            "leaves": len(gaps), "launches": counts, "record_launches": by_kernel,
+            "shape_launches": shapes, "first_step_s": first_s,
+            "step_ms": step_ms, "step_ms_plain": plain["step_ms"],
+            "timed_steps": LM_TIMED_STEPS}
+
+
+def mesh_bytes() -> dict:
+    """21b on ``meta``: phase 7's model at its full 30 layers (float32,
+    B 16, S 128, ``c3sl:R=4``) over SHARD_MESHES and one card, per-device
+    argument bytes against CARD_HBM_BYTES; then the ten archs at the
+    reference's single and multi meshes, as 19a runs them on one card
+    (decode_32k for all, train_4k for DRY_SWEEP_TRAIN, bf16), cut short
+    past DRY_SWEEP_BUDGET_S; ``memory_allocated`` the same before and after."""
+    import torch
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_shape
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    full = get_config(LM_ARCH)
+    four = {}
+    for kind in ["card"] + [mesh_shape(d, m) for d, m in SHARD_MESHES]:
+        r = dryrun.dryrun_one(LM_ARCH, DRY_SHAPE, kind, codec_kind="c3sl:R=4",
+                              save=False, cfg_override=full,
+                              param_dtype=torch.float32)
+        check(r["status"] == "ok", f"phase 21b: {r['mesh']} {r['status']}")
+        four[r["mesh"]] = {"n_chips": r["n_chips"],
+                           "argument_bytes": r["per_device"]["argument_bytes"],
+                           "fits_one_card": r["fits_one_card"]}
+    t0 = time.perf_counter()
+    sweep, left_out = [], []
+    combos = [(a, s, m) for s in ("decode_32k", "train_4k") for a in ALL_ARCHS
+              for m in ("single", "multi")]
+    for arch, shape, mesh in combos:
+        if ((shape == "train_4k" and arch not in DRY_SWEEP_TRAIN)
+                or time.perf_counter() - t0 > DRY_SWEEP_BUDGET_S):
+            left_out.append(f"{arch} {shape} {mesh}")
+            continue
+        r = dryrun.dryrun_one(arch, shape, mesh, save=False)
+        check(r["status"] == "ok" and r["n_chips"] == (512 if mesh == "multi"
+                                                      else 256),
+              f"phase 21b: {arch} {shape} {mesh} {r['status']}")
+        sweep.append({"arch": arch, "shape": shape, "mesh": mesh,
+                      "n_chips": r["n_chips"],
+                      "argument_bytes": r["per_device"]["argument_bytes"],
+                      "fits_one_card": r["fits_one_card"],
+                      "model_flops_per_device": r["model_flops_per_device"]})
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 == mem0, f"phase 21b: memory_allocated {mem0} -> {mem1}")
+    return {"full_depth": four, "sweep": sweep, "left_out": left_out,
+            "layers": full.num_layers, "memory_allocated": [mem0, mem1]}
+
+
+def mesh_phase(dev, plain) -> dict:
+    """Phase 21: 21a on a one-rank NCCL mesh, then 21b on meta."""
+    t0 = time.perf_counter()
+    step = sharded_step(dev, plain)
+    with dry_shape():
+        per_device = mesh_bytes()
+    return {"step": step, "per_device": per_device,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_mesh(card, res):
+    st, pd = res["step"], res["per_device"]
+    print("phase 21: one rank; the card's machine has one GPU, so the mesh "
+          "is (data 1, model 1) over NCCL; multi-rank correctness is held by "
+          "the CPU tests on 4 gloo ranks (tests/test_torch_sharding_step.py)",
+          flush=True)
+    print(f"  mesh step {st['arch']} x{st['layers']} B {st['batch']} S "
+          f"{st['seq']} float32 {st['codec']} on {st['mesh']}: "
+          f"{st['placed_leaves']} leaves placed; loss {st['loss']:.6f} vs plain "
+          f"{st['loss_plain']:.6f} (rel {st['loss_gap']:.3g}, limit "
+          f"{SHARD_LOSS_TOL}); fingerprints after {1 + st['timed_steps']} "
+          f"steps worst {st['leaf_gap']:.3g} (limit {SHARD_LEAF_TOL}), "
+          f"{st['bitwise_leaves']} of {st['leaves']} leaves bitwise; "
+          f"launches {st['launches']} by shape {st['shape_launches']}",
+          flush=True)
+    print(f"time [{card}] mesh train step (DTensor, one rank, {st['codec']}, "
+          f"M 1): {st['step_ms']:.1f} ms against the plain step's "
+          f"{st['step_ms_plain']:.1f} ms (phase 19b; each the median of "
+          f"{st['timed_steps']}, host included); first step {st['first_step_s']:.1f} s",
+          flush=True)
+    for name, r in pd["full_depth"].items():
+        print(f"  per device {LM_ARCH} x{pd['layers']} B {LM_BATCH} S {LM_SEQ} "
+              f"float32 on {name} ({r['n_chips']} cards): arguments "
+              f"{r['argument_bytes'] / 1e9:.2f} GB vs 80 GB (fits "
+              f"{r['fits_one_card']})", flush=True)
+    for r in pd["sweep"]:
+        print(f"  per device {r['arch']} {r['shape']} {r['mesh']} "
+              f"({r['n_chips']} cards) bf16: arguments "
+              f"{r['argument_bytes'] / 1e9:.3f} GB (fits {r['fits_one_card']}), "
+              f"model_flops/device {r['model_flops_per_device']:.4g}", flush=True)
+    print(f"mesh: left out {pd['left_out'] or 'none'}; phase seconds "
+          f"{res['seconds']:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5397,6 +5670,15 @@ def main() -> int:
     lap("sync_audit")
     print_sync_audit(card, audit)
 
+    print("phase 21: the mesh and the sharding rules on DTensor", flush=True)
+    free_cuda()
+    plain = dry["step"].pop("fingerprints")
+    mesh = mesh_phase(dev, {"fingerprints": plain,
+                            **{k: dry["step"][k] for k in ("loss_m1", "step_ms")}})
+    del plain
+    lap("mesh")
+    print_mesh(card, mesh)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -5463,7 +5745,7 @@ def main() -> int:
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values(),
-               *san["train"]["runs"].values(), dry["step"]]
+               *san["train"]["runs"].values(), dry["step"], mesh["step"]]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
                               serve_ii, door) for r in f["runs"].values()]
     serve_runs += list(san["serve"].values())
@@ -5548,7 +5830,7 @@ def main() -> int:
         "lm_training_qwen": qwen, "lm_training_families": families,
         "serving_families": serve_families, "serving_states": serve_states,
         "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
-        "sanitize": san, "dryrun": dry, "sync_audit": audit,
+        "sanitize": san, "dryrun": dry, "sync_audit": audit, "mesh": mesh,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

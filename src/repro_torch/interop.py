@@ -52,11 +52,26 @@ def _to_torch(x, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_numpy(tree, device="cuda"):
-    """numpy (or array-like) leaves -> tensors on ``device``, same key paths."""
-    return tree_map(lambda x: _to_torch(x, device), tree)
+def params_from_numpy(tree, device="cuda", mesh=None):
+    """numpy (or array-like) leaves -> tensors on ``device``, same key paths.
+    With ``mesh`` (a ``launch.mesh.make_host_mesh`` mesh on ``device``'s
+    type), each leaf is then placed on it as a DTensor by
+    ``sharding.rules.param_shardings``: every rank passes the same whole
+    tree and keeps its shard."""
+    out = tree_map(lambda x: _to_torch(x, device), tree)
+    if mesh is None:
+        return out
+    from repro_torch.sharding import rules
+    return rules.distribute_tree(out, rules.param_shardings(out, mesh), mesh)
+
+
+def _whole(t):
+    """A DTensor's whole value (``full_tensor()``, a collective every rank
+    joins), or ``t``."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def params_to_numpy(tree):
-    """Tensor leaves -> numpy arrays on the host, same key paths."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Tensor leaves -> numpy arrays on the host, same key paths; a DTensor
+    leaf becomes its whole value (every rank must call this)."""
+    return tree_map(lambda t: _whole(t.detach()).cpu().numpy(), tree)

@@ -1,33 +1,42 @@
-"""One-card dry run: the analytic half of ``repro/launch/dryrun.py``.
+"""The dry run's analytic half: ``repro/launch/dryrun.py`` on ``meta``.
 
 The reference lowers and compiles every (arch x input shape x mesh) against
 placeholder devices and reads XLA's artefacts.  The port builds the same
-step on torch's ``meta`` device, which allocates nothing, runs it once
-under ``torch.utils.flop_counter.FlopCounterMode`` and reports what the
-shapes alone determine: the counted matmul FLOPs (the reference's
-``hlo_flops_per_device`` counts dots; the FFTs and the circconv kernels
-count nothing on either side), ``model_flops``, the exact bytes of the
-step's arguments, and the three roofline terms against an H100's peaks.
+step on torch's ``meta`` device, which allocates nothing, and reports what
+the shapes alone determine.  Over the reference's meshes, ``single``
+(data 16, model 16) and ``multi`` (pod 2, data 16, model 16), or any
+``launch.mesh.MeshShape``, that is ``per_device.argument_bytes``: the sum,
+over the params, the optimizer state and the batch (the cache and tokens
+in decode mode), of each leaf's local shard bytes under
+``sharding.rules``, as the reference's ``_lower_and_compile`` places them;
+``n_chips`` is the mesh's size and ``model_flops_per_device`` is
+``model_flops / n_chips``, as in the reference.  On ``card``, one H100, it
+also runs the step once under ``torch.utils.flop_counter.FlopCounterMode``:
+the counted matmul FLOPs (the reference's ``hlo_flops_per_device`` counts
+dots; the FFTs and the circconv kernels count nothing on either side), the
+exact bytes of the step's arguments, and the three roofline terms against
+an H100's peaks.
 
     # one combination, on the CPU (nothing is allocated; no card needed)
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
-        --shape train_4k --out build/dryrun
+        --shape train_4k --mesh multi --out build/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
-        --shape train_4k --codec "c3sl:R=4"
+        --shape train_4k --mesh card --codec "c3sl:R=4"
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
 Each result lands in ``--out`` (default ``build/dryrun`` under the
 checkout), one JSON a combination.  XLA-only numbers (temp bytes, the
 compiled peak, collective bytes by op, the top-k wire bytes read from HLO)
-have no counterpart and are absent; the microbatch count is
-``force_microbatches`` or 1 (the reference's auto-tune loop reads XLA's
-memory analysis).  ``--mesh multi`` raises: the port runs on one card.
+have no counterpart and are absent, and so are the FLOPs counted per
+device on a mesh; the microbatch count is ``force_microbatches`` or 1 (the
+reference's auto-tune loop reads XLA's memory analysis).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -41,8 +50,11 @@ from repro_torch.configs.archs import ALL_ARCHS
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.data.pipeline import SHAPES, input_specs
 from repro_torch.interop import tree_leaves, tree_map, tree_unflatten
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules as sh
+from repro_torch.sharding.constraints import mesh_scope, microbatch
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "../../../build/dryrun")
 
@@ -56,6 +68,9 @@ H100_PEAK_FLOPS = {
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_HBM_BYTES = 80e9
 H100_NVLINK_BYTES_PER_S = 900e9  # NVLink 4, all links of one card
+
+# the dry run's meshes: one card, and the reference's production meshes
+MESH_KINDS = ("card", "single", "multi")
 
 
 def shape_adjusted_config(arch: str, shape_name: str) -> ModelConfig | None:
@@ -126,6 +141,63 @@ def model_flops(cfg: ModelConfig, shape_name: str) -> float:
     return 2.0 * n_active * spec["global_batch"]  # one token per sequence
 
 
+def make_mesh(mesh_kind):
+    """The dry run's mesh: None for ``"card"`` (one H100), the reference's
+    production mesh shape for ``"single"`` and ``"multi"``; a
+    ``launch.mesh.MeshShape`` (any shape) passes through."""
+    if not isinstance(mesh_kind, str):
+        return mesh_kind
+    if mesh_kind not in MESH_KINDS:
+        raise ValueError(f"mesh {mesh_kind!r}: one of {MESH_KINDS} or a "
+                         "launch.mesh.MeshShape")
+    if mesh_kind == "card":
+        return None
+    return mesh_lib.make_production_mesh(multi_pod=(mesh_kind == "multi"))
+
+
+def mesh_name(mesh_kind) -> str:
+    """``mesh_kind``'s name in results: its own, or a MeshShape's sizes
+    (``"4x1"`` for data 4, model 1)."""
+    if isinstance(mesh_kind, str):
+        return mesh_kind
+    return "x".join(str(n) for n in mesh_kind.shape.values())
+
+
+def np_prod_batch_shards(mesh) -> int:
+    n = mesh.shape["data"]
+    if "pod" in mesh.axis_names:
+        n *= mesh.shape["pod"]
+    return n
+
+
+def argument_specs(args, kind: str, mesh) -> tuple:
+    """The rules' spec trees for ``abstract_step``'s arguments, as the
+    reference's ``_lower_and_compile`` gives its ``in_shardings``: params
+    by ``param_shardings`` (decode mode for decode), the AdamW state by
+    ``opt_state_shardings``, the batch by ``batch_shardings``, the decode
+    cache by ``cache_shardings``, the decode position replicated."""
+    params = args[0]
+    mode = "decode" if kind == "decode" else "train"
+    param_sh = sh.param_shardings(params, mesh, mode=mode)
+    if kind == "train":
+        _, opt_state, batch = args
+        return (param_sh, sh.opt_state_shardings(opt_state, mesh),
+                sh.batch_shardings(batch, mesh))
+    if kind == "prefill":
+        return param_sh, sh.batch_shardings(args[1], mesh)
+    _, cache, tokens, _ = args
+    return (param_sh, sh.cache_shardings(cache, mesh),
+            sh.batch_shardings({"tokens": tokens}, mesh)["tokens"], ())
+
+
+def sharded_bytes(tree, specs, mesh) -> int:
+    """The bytes of one device's shards of ``tree``'s tensors placed by
+    ``specs`` (a tree of the same structure) on ``mesh``."""
+    sizes = tree_map(lambda t, s: math.prod(sh.local_shape(t.shape, s, mesh))
+                     * t.element_size(), tree, specs)
+    return sum(tree_leaves(sizes))
+
+
 def build_train_step(cfg: ModelConfig, codec=None, codec_params=None,
                      num_microbatches: int = 1):
     """Full training step: loss + grads (+ gradient accumulation) + AdamW.
@@ -133,10 +205,12 @@ def build_train_step(cfg: ModelConfig, codec=None, codec_params=None,
     ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``
     runs where its tensors are (the card, the CPU or ``meta``).
     Microbatching bounds peak activation memory: the batch is split into
-    ``num_microbatches`` chunks run one after another, their gradients
-    summed into a float32 tree.  From the second microbatch on, two
-    gradient trees are held (the sum and the microbatch's), as in the
-    reference's scan carry; only the activations shrink.  The update is
+    ``num_microbatches`` chunks of consecutive rows run one after another,
+    their gradients summed into a float32 tree (on a mesh, each rank runs
+    its share of each chunk's rows: ``sharding.constraints.microbatch``).
+    From the second microbatch on, two gradient trees are held (the sum
+    and the microbatch's), as in the reference's scan carry; only the
+    activations shrink.  The update is
     AdamW(1e-4) in place on ``params`` and ``opt_state`` (the reference
     donates both to its compiled step; the numbers are those of
     ``apply_updates``)."""
@@ -144,13 +218,17 @@ def build_train_step(cfg: ModelConfig, codec=None, codec_params=None,
     M = num_microbatches
 
     def train_step(params, opt_state, batch):
+        with mesh_scope(params):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         train = tree_map(lambda t: t.detach().requires_grad_(), params)
         leaves = tree_leaves(train)
         acc = None
         loss = 0.0
         for m in range(M):
             mb = batch if M == 1 else tree_map(
-                lambda x: x.reshape(M, x.shape[0] // M, *x.shape[1:])[m], batch)
+                lambda x: microbatch(x, M, m), batch)
             lm = lm_lib.lm_loss(train, mb, cfg, codec=codec,
                                 codec_params=codec_params)
             got = torch.autograd.grad(lm, leaves, allow_unused=True)
@@ -226,44 +304,61 @@ def abstract_step(cfg: ModelConfig, shape_name: str, codec, codec_params,
     return (params, cache, batch["tokens"], pos), serve_step
 
 
-def dryrun_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
+def dryrun_one(arch: str, shape_name: str, mesh_kind="single", *,
                codec_kind="none", R=4, quant_bits=None, unitary=False,
                save=True, tag="baseline", param_dtype=torch.bfloat16,
                cfg_override=None, force_microbatches=None, out=RESULTS_DIR):
-    """One (arch, shape) on one card, on ``meta``.  ``shape_name`` is a key
-    of ``SHAPES`` (a caller may add its own entry); ``cfg_override``
-    replaces the shape-adjusted config."""
-    if mesh_kind != "single":
-        raise ValueError(f"mesh {mesh_kind!r}: the port's dry run is of one "
-                         "card (mesh 'single'); it places nothing on a mesh")
+    """One (arch, shape, mesh) on ``meta``.  ``shape_name`` is a key of
+    ``SHAPES`` (a caller may add its own entry); ``mesh_kind`` is "card"
+    (one H100: the step's counted FLOPs and roofline too), "single" or
+    "multi" (the reference's meshes) or a ``launch.mesh.MeshShape``;
+    ``cfg_override`` replaces the shape-adjusted config."""
+    mesh = make_mesh(mesh_kind)
     cfg = cfg_override or shape_adjusted_config(arch, shape_name)
-    result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
-              "codec": codec_kind, "R": R}
+    result = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh_kind),
+              "tag": tag, "codec": codec_kind, "R": R}
     if cfg is None:
         result["status"] = "skipped"
         result["reason"] = "long_500k unsupported (enc-dec full attention)"
         return _save(result, out) if save else result
 
-    n_chips = 1
+    n_chips = 1 if mesh is None else mesh.size
     t0 = time.time()
     codec, codec_params = make_codec(cfg, shape_name, codec_kind, R,
                                      quant_bits, unitary)
     num_microbatches = force_microbatches or 1
     args, fn = abstract_step(cfg, shape_name, codec, codec_params,
                              param_dtype, num_microbatches)
-    argument_bytes = tree_bytes(args)
-    _, flops, by_op = count_flops(fn, *args)
-    trace_s = time.time() - t0
-
     mf = model_flops(cfg, shape_name)
-    hbm_floor = argument_bytes          # every argument read once
-    terms = roofline_terms(flops, hbm_floor, 0, n_chips, param_dtype)
-    result.update({
+    common = {
         "status": "ok",
         "n_chips": n_chips,
         "device": "NVIDIA H100 80GB HBM3",
         "param_dtype": str(param_dtype).replace("torch.", ""),
         "num_microbatches": num_microbatches,
+    }
+    if mesh is not None:
+        specs = argument_specs(args, SHAPES[shape_name]["kind"], mesh)
+        argument_bytes = sum(sharded_bytes(a, s, mesh)
+                             for a, s in zip(args, specs))
+        result.update(common, **{
+            "mesh_shape": dict(mesh.shape),
+            "trace_s": round(time.time() - t0, 1),
+            "per_device": {"argument_bytes": argument_bytes},
+            "fits_one_card": argument_bytes <= H100_HBM_BYTES,
+            "model_flops_global": mf,
+            "model_flops_per_device": mf / n_chips,
+            "params_global": cfg.param_count(),
+            "params_active": cfg.active_param_count(),
+        })
+        return _save(result, out) if save else result
+
+    argument_bytes = tree_bytes(args)
+    _, flops, by_op = count_flops(fn, *args)
+    trace_s = time.time() - t0
+    hbm_floor = argument_bytes          # every argument read once
+    terms = roofline_terms(flops, hbm_floor, 0, n_chips, param_dtype)
+    result.update(common, **{
         "trace_s": round(trace_s, 1),
         "per_device": {"argument_bytes": argument_bytes},
         "fits_one_card": argument_bytes <= H100_HBM_BYTES,
@@ -310,7 +405,7 @@ def pipeline_dryrun(arch: str, *, R: int = 4, quant_bits=None, unitary=False,
     fwd = codec.fwd.codec if link else codec
     wire = fwd.wire_bytes(mb)
     result = {
-        "arch": arch, "shape": shape_name, "mesh": "single-pipeline",
+        "arch": arch, "shape": shape_name, "mesh": "card-pipeline",
         "tag": tag, "codec": codec_kind if codec_kind != "none" else "identity",
         # links report the FORWARD channel's R (SplitLink carries no bare R)
         "R": getattr(codec.fwd.current if link else codec, "R", 1),
@@ -343,7 +438,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPES))
-    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--mesh", choices=list(MESH_KINDS), default="single")
     ap.add_argument("--codec", default="none",
                     help="registry spec, e.g. 'c3sl:R=4|int8' (see repro_torch.codecs)")
     ap.add_argument("--R", type=int, default=4)
@@ -358,8 +453,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.all:
-        # one card: the single mesh only
-        combos = [(a, s, "single") for a in ALL_ARCHS for s in SHAPES]
+        combos = [(a, s, m) for a in ALL_ARCHS for s in SHAPES
+                  for m in MESH_KINDS]
     else:
         combos = [(args.arch, args.shape, args.mesh)]
 
@@ -373,8 +468,10 @@ def main(argv=None):
             extra = ""
             if status == "ok":
                 ab = r["per_device"]["argument_bytes"]
-                extra = (f"args={ab/2**30:.2f}GiB dom={r['dominant']} "
-                         f"trace={r['trace_s']}s")
+                extra = (f"args={ab/2**30:.2f}GiB "
+                         + (f"dom={r['dominant']} " if "dominant" in r
+                            else f"chips={r['n_chips']} ")
+                         + f"trace={r['trace_s']}s")
             print(f"[dryrun] {arch} {shape_name} {mesh_kind}: {status} {extra}",
                   flush=True)
         except Exception:

@@ -51,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
 from repro_torch.models.layers import (apply_rope, dense_init, matmul, promote,
                                        rms_norm)
+from repro_torch.sharding.constraints import is_dtensor, on_local_heads
 
 NEG_INF = -1e30
 
@@ -138,7 +139,11 @@ Q_CHUNK = 1024
 def _sdpa_causal(q, k, v, window: int | None = None, q_chunk: int = Q_CHUNK):
     """Causal SDPA, q-chunked above CHUNK_THRESHOLD.  Static chunk bounds:
     chunk i attends kv[max(0, i*qc - window + 1) : (i+1)*qc), its start
-    aligned down to the chunk grid."""
+    aligned down to the chunk grid.  Over a mesh (DTensor inputs), each
+    rank attends with its own rows and heads on local tensors
+    (``sharding.constraints.on_local_heads``)."""
+    if is_dtensor(q):
+        return on_local_heads(_sdpa_causal, q, k, v, window, q_chunk)
     S = q.shape[1]
     if S <= CHUNK_THRESHOLD:
         return _sdpa(q, k, v, causal_mask(S, S, window, device=q.device))

@@ -55,7 +55,10 @@ from repro_torch.models import stack as stack_lib
 from repro_torch.models.layers import (MetaRng, dense_init, embed_init,
                                        matmul, softmax_cross_entropy)
 from repro_torch.models.stack import _apply_norm, _init_norm
-from repro_torch.transport.link import roundtrip
+from repro_torch.sharding.constraints import (is_dtensor, lookup,
+                                              on_local_rows, rows_only,
+                                              unshard)
+from repro_torch.transport.link import SplitLink, roundtrip
 
 
 ENC_PATTERN = (("attn", "mlp"),)
@@ -117,7 +120,7 @@ def _positions(h):
 def _embed_inputs(params, cfg: ModelConfig, batch):
     """Token (+ VLM frontend) embedding.  Returns (h (B,S,d), positions
     (B,S)); a VLM's S is frontend_seq + the text's."""
-    h = params["embed"][batch["tokens"].long()]
+    h = lookup(params["embed"], batch["tokens"].long())
     if cfg.frontend and not cfg.is_encdec:
         fe = batch["frontend"] @ params["frontend_proj"]
         h = torch.cat([fe.to(h.dtype), h], dim=1)
@@ -137,6 +140,25 @@ def _split_stacked(stacked, n_front: int):
     front = tree_map(lambda a: a[:n_front], stacked)
     back = tree_map(lambda a: a[n_front:], stacked)
     return front, back
+
+
+def _roundtrip_on_mesh(codec, codec_params, Zf, with_metrics, bwd_probe,
+                       erasure):
+    """The cut's round trip over a DTensor ``Zf`` (B, S*d): the codec's
+    kernels run on each rank's local rows (``on_local_rows``: D made whole,
+    the rows gathered first where a group of the payload's consecutive
+    rows would span ranks), so each rank forms the groups the whole batch
+    forms.  The cut's metrics, erasure masks and gradient-SNR probe are
+    whole-batch quantities, and a ``SplitLink``'s gradient channel groups
+    its own rows: both are refused here."""
+    if with_metrics or erasure is not None or bwd_probe is not None:
+        raise ValueError("the cut over a mesh takes no metrics, erasure "
+                         "masks or gradient-SNR probe (whole-batch tensors)")
+    if isinstance(codec, SplitLink):
+        raise ValueError("the cut over a mesh takes a codec, not a SplitLink")
+    B = Zf.shape[0]
+    return on_local_rows(lambda z: roundtrip(codec, codec_params, z), Zf,
+                         B // codec.payload_shape(B)[0])
 
 
 def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
@@ -180,7 +202,10 @@ def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
         h, a1 = run(front, h)
         B, S, d = h.shape
         Zf = h.reshape(B, S * d)
-        if with_metrics:
+        if is_dtensor(Zf):
+            Zhat = _roundtrip_on_mesh(codec, codec_params, Zf, with_metrics,
+                                      bwd_probe, erasure)
+        elif with_metrics:
             Zhat, snr = roundtrip(codec, codec_params, Zf, with_snr=True,
                                   bwd_probe=bwd_probe, erasure=erasure)
             metrics["cut_snr"] = snr
@@ -189,6 +214,8 @@ def lm_forward(params, batch, cfg: ModelConfig, *, codec=None,
                              erasure=erasure)
         h, a2 = run(back, Zhat.reshape(B, S, d))
         aux = aux + a1 + a2
+    # the stack's sharded carry, its sequence gathered for the head
+    h = unshard(h, "model")
     if last_only:
         h = h[:, -1:, :]
     h = _apply_norm(cfg, params["final_norm"], h)
@@ -215,6 +242,9 @@ def lm_loss(params, batch, cfg: ModelConfig, *, codec=None, codec_params=None,
         pad = torch.full((labels.shape[0], cfg.frontend_seq), -1,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
+    # on a mesh the head's logits are split over vocab: made whole (each
+    # rank keeps its rows) before the picked logit's gather
+    logits = rows_only(logits)
     ce = softmax_cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
     loss = ce + cfg.aux_loss_weight * aux
     if with_metrics:

@@ -54,6 +54,8 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
+from repro_torch.sharding.active import active_mesh
+from repro_torch.sharding.constraints import constrain, unshard
 
 RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
@@ -277,16 +279,44 @@ def apply_superblock(p_sb, cfg: ModelConfig, h, positions, *, pattern=None,
     return h, aux_total
 
 
+def _activation_constraint(h):
+    """Sequence-shard the residual stream stored at superblock boundaries
+    (Megatron-SP style): (B, S, D) -> (batch axes, "model", None).  What
+    matters is that the per-superblock *stored* copies (the inputs each
+    recomputed superblock keeps) are sharded.  A no-op outside a (data,
+    model) mesh, on a plain tensor, or on non-divisible shapes."""
+    mesh = active_mesh()
+    if mesh is None or h.ndim != 3:
+        return h
+    names = set(mesh.axis_names)
+    if "model" not in names or "data" not in names:
+        return h
+    batch_ax = ("pod", "data") if "pod" in names else ("data",)
+    bsz = 1
+    for a in batch_ax:
+        bsz *= mesh.shape[a]
+    B, S, _ = h.shape
+    if B % bsz or S % mesh.shape["model"]:
+        return h
+    return constrain(h, (batch_ax, "model", None))
+
+
 def apply_stack(stacked, cfg: ModelConfig, h, positions, *, memory=None,
                 sliding_window=None, remat: bool = True):
     """Every superblock of ``stacked`` (leading axis: superblocks) in order.
     Returns (h, total_aux_loss).  ``remat`` recomputes each superblock in
     the backward instead of keeping its activations; ``memory`` (the
     encoder's output, for ``cross``) enters each recomputed superblock as
-    an input."""
+    an input.  Each superblock's output is sharded by
+    :func:`_activation_constraint` inside the recomputed body, so the
+    carry the next one keeps is the sharded one; the body gathers the
+    sequence back over "model" for its own compute (Megatron-SP's
+    all-gather), where the matmuls flatten (B, S).  The returned h is the
+    last superblock's sharded carry."""
     def body(p_sb, h, memory):
-        return apply_superblock(p_sb, cfg, h, positions, memory=memory,
-                                sliding_window=sliding_window)
+        h, aux = apply_superblock(p_sb, cfg, unshard(h, "model"), positions,
+                                  memory=memory, sliding_window=sliding_window)
+        return _activation_constraint(h), aux
 
     aux = 0.0
     for p_sb in _unstack(stacked):

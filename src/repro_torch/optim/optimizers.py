@@ -12,6 +12,13 @@ same numbers.  The functional form keeps the old moments and params beside
 the new ones until the caller drops them (eight copies of the params at
 the peak, with the gradients and the updates); in place, four.  The LM
 trainer uses it, with ``clip_by_global_norm_``, at full width.
+
+Leaves may be DTensors on a mesh (the dry run's sharded step): the moments
+take their param's placements, each gradient is redistributed to its
+param's placements before the update (a ``Partial`` gradient is reduced
+there), the norms are DTensor reductions over every rank's shard, and the
+updates run under ``implicit_replication`` so the plain 0-d step count
+and bias corrections act as replicated.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.sharding.constraints import is_dtensor, mesh_scope
 
 
 class Optimizer(NamedTuple):
@@ -39,9 +47,28 @@ def _f32(x):
     return x.float()
 
 
+def _placed_like(g, p):
+    """``g`` redistributed to DTensor ``p``'s placements (a ``Partial``
+    gradient reduced, a differently split one moved); ``g`` itself where
+    either is a plain tensor or the placements already agree."""
+    if (not is_dtensor(p) or not is_dtensor(g)
+            or tuple(g.placements) == tuple(p.placements)):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _zeros_f32(p):
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.abs().float()))
-                          for x in tree_leaves(tree)))
+    """The L2 norm over every leaf; over DTensor leaves, a reduction over
+    every rank's shard (a replicated DTensor)."""
+    with mesh_scope(tree):
+        return torch.sqrt(sum(torch.sum(torch.square(x.abs().float()))
+                              for x in tree_leaves(tree)))
 
 
 def _clip_scale(gn, max_norm: float):
@@ -50,8 +77,9 @@ def _clip_scale(gn, max_norm: float):
 
 def clip_by_global_norm(tree, max_norm: float):
     gn = global_norm(tree)
-    scale = _clip_scale(gn, max_norm)
-    return tree_map(lambda x: x * scale, tree), gn
+    with mesh_scope(tree):
+        scale = _clip_scale(gn, max_norm)
+        return tree_map(lambda x: x * scale, tree), gn
 
 
 @torch.no_grad()
@@ -59,9 +87,10 @@ def clip_by_global_norm_(tree, max_norm: float):
     """:func:`clip_by_global_norm` in place on ``tree``'s leaves; returns
     the global norm before clipping."""
     gn = global_norm(tree)
-    scale = _clip_scale(gn, max_norm)
-    for x in tree_leaves(tree):
-        x.mul_(scale)
+    with mesh_scope(tree):
+        scale = _clip_scale(gn, max_norm)
+        for x in tree_leaves(tree):
+            x.mul_(scale)
     return gn
 
 
@@ -73,9 +102,8 @@ def _count0(params):
 
 def _adam_core(lr, b1, b2, eps, weight_decay):
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-                "count": _count0(params)}
+        return {"m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params), "count": _count0(params)}
 
     def corrections(count):
         lr_t = lr(count) if callable(lr) else lr
@@ -99,35 +127,38 @@ def _adam_core(lr, b1, b2, eps, weight_decay):
         v.mul_(b2).add_((1 - b2) * torch.square(g))
 
     def update(grads, state, params=None):
-        count = state["count"] + 1
-        m = tree_map(torch.clone, state["m"])
-        v = tree_map(torch.clone, state["v"])
-        for mi, vi, g in zip(tree_leaves(m), tree_leaves(v), tree_leaves(grads)):
-            moments_(mi, vi, g)
-        lr_t, c1, c2 = corrections(count)
-        if weight_decay:
-            updates = tree_map(lambda m, v, p: upd(m, v, p, lr_t, c1, c2),
-                               m, v, params)
-        else:
-            updates = tree_map(lambda m, v: upd(m, v, None, lr_t, c1, c2), m, v)
+        with mesh_scope(state["m"]):
+            count = state["count"] + 1
+            m = tree_map(torch.clone, state["m"])
+            v = tree_map(torch.clone, state["v"])
+            for mi, vi, g in zip(tree_leaves(m), tree_leaves(v), tree_leaves(grads)):
+                moments_(mi, vi, _placed_like(g, mi))
+            lr_t, c1, c2 = corrections(count)
+            if weight_decay:
+                updates = tree_map(lambda m, v, p: upd(m, v, p, lr_t, c1, c2),
+                                   m, v, params)
+            else:
+                updates = tree_map(lambda m, v: upd(m, v, None, lr_t, c1, c2),
+                                   m, v)
         return updates, {"m": m, "v": v, "count": count}
 
     @torch.no_grad()
     def update_(grads, state, params):
         """``update`` then ``apply_updates``, in place on ``state`` and
         ``params``, leaf by leaf, in the same operations."""
-        state["count"] = state["count"] + 1
-        lr_t, c1, c2 = corrections(state["count"])
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
-                              tree_leaves(state["v"]), tree_leaves(params)):
-            moments_(m, v, g)
-            if p.is_complex():
-                continue   # frozen constants take no updates
-            u = upd(m, v, p, lr_t, c1, c2)
-            if p.dtype == torch.float32:
-                p.add_(u)
-            else:
-                p.copy_((p.float() + u).to(p.dtype))
+        with mesh_scope(params):
+            state["count"] = state["count"] + 1
+            lr_t, c1, c2 = corrections(state["count"])
+            for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                                  tree_leaves(state["v"]), tree_leaves(params)):
+                moments_(m, v, _placed_like(g, p))
+                if p.is_complex():
+                    continue   # frozen constants take no updates
+                u = upd(m, v, p, lr_t, c1, c2)
+                if p.dtype == torch.float32:
+                    p.add_(u)
+                else:
+                    p.copy_((p.float() + u).to(p.dtype))
 
     return Optimizer(init, update, update_)
 

@@ -22,6 +22,7 @@ import os
 import re
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -237,7 +238,7 @@ def test_meta_count_equals_a_real_step(small_shapes, arch, shape, M):
     """The dry run's counted FLOPs and argument bytes on meta against the
     same step run on real CPU tensors (codec c3sl:R=4 at the midpoint)."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    r = dryrun.dryrun_one(arch, shape, codec_kind="c3sl:R=4", save=False,
+    r = dryrun.dryrun_one(arch, shape, "card", codec_kind="c3sl:R=4", save=False,
                           cfg_override=cfg, param_dtype=torch.float32,
                           force_microbatches=M if M > 1 else None)
     codec, _ = dryrun.make_codec(cfg, shape, "c3sl:R=4", 4)
@@ -252,8 +253,8 @@ def test_meta_count_equals_a_real_step(small_shapes, arch, shape, M):
 
 def test_dryrun_one_record(small_shapes):
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"))
-    r = dryrun.dryrun_one("deepseek-7b", "tiny_train", codec_kind="c3sl:R=4",
-                          save=False, cfg_override=cfg,
+    r = dryrun.dryrun_one("deepseek-7b", "tiny_train", "card",
+                          codec_kind="c3sl:R=4", save=False, cfg_override=cfg,
                           param_dtype=torch.float32)
     mf = dryrun.model_flops(cfg, "tiny_train")
     assert r["model_flops_global"] == r["model_flops_per_device"] == mf
@@ -267,9 +268,11 @@ def test_dryrun_one_record(small_shapes):
     for absent in ("temp_bytes", "peak_bytes", "collective_bytes_per_device",
                    "topk_wire_bytes_hlo"):
         assert absent not in r and absent not in r["per_device"]
-    with pytest.raises(ValueError, match="one card"):
-        dryrun.dryrun_one("deepseek-7b", "tiny_train", "multi", save=False)
-    skipped = dryrun.dryrun_one("seamless-m4t-large-v2", "long_500k", save=False)
+    assert r["mesh"] == "card" and r["n_chips"] == 1
+    with pytest.raises(ValueError, match="mesh 'pod'"):
+        dryrun.dryrun_one("deepseek-7b", "tiny_train", "pod", save=False)
+    skipped = dryrun.dryrun_one("seamless-m4t-large-v2", "long_500k", "card",
+                                save=False)
     assert skipped["status"] == "skipped"
 
 
@@ -356,13 +359,14 @@ def test_cli_writes_only_under_out(tmp_path):
                PYTHONPATH=os.path.join(ROOT, "src"))
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "deepseek-7b", "--shape", "train_4k", "--out", str(tmp_path)],
+         "deepseek-7b", "--shape", "train_4k", "--mesh", "card", "--out",
+         str(tmp_path)],
         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert run.returncode == 0, run.stderr[-3000:]
-    assert re.fullmatch(r"\[dryrun\] deepseek-7b train_4k single: ok "
+    assert re.fullmatch(r"\[dryrun\] deepseek-7b train_4k card: ok "
                         r"args=\S+GiB dom=compute_s trace=\S+s\n", run.stdout)
     files = os.listdir(tmp_path)
-    assert files == ["deepseek-7b_train_4k_single_baseline.json"]
+    assert files == ["deepseek-7b_train_4k_card_baseline.json"]
     r = json.loads((tmp_path / files[0]).read_text())
     assert r["model_flops_global"] == 6.0 * r["params_active"] * 256 * 4096
     # bf16 params, float32 moments, the int32 count, int64 tokens and labels
@@ -373,13 +377,169 @@ def test_cli_writes_only_under_out(tmp_path):
     assert r["fits_one_card"] == (ab <= 80e9)
     after = sorted(os.walk(bench)) if os.path.isdir(bench) else None
     assert before == after
-    # --pipeline is parsed and ignored, as the reference's main does
-    bad = subprocess.run(
+    # the reference's multi-pod mesh, per device; --pipeline is parsed and
+    # ignored, as the reference's main does
+    multi = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "deepseek-7b", "--shape", "decode_32k", "--mesh", "multi",
          "--pipeline", "--out", str(tmp_path)],
         capture_output=True, text=True, env=env, timeout=120)
+    assert multi.returncode == 0, multi.stderr[-3000:]
+    assert re.fullmatch(r"\[dryrun\] deepseek-7b decode_32k multi: ok "
+                        r"args=\S+GiB chips=512 trace=\S+s\n", multi.stdout)
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "no-such-arch", "--shape", "decode_32k", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=120)
     assert bad.returncode == 1
-    assert bad.stdout.startswith("[dryrun] deepseek-7b decode_32k multi: FAILED")
-    assert "one card" in bad.stderr
-    assert os.listdir(tmp_path) == files
+    assert bad.stdout.startswith("[dryrun] no-such-arch decode_32k single: FAILED")
+    assert "no-such-arch" in bad.stderr
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        files + ["deepseek-7b_decode_32k_multi_baseline.json"])
+
+
+# --------------------------------------------------------------------------
+# the mesh half: per-device argument bytes from the rules
+# --------------------------------------------------------------------------
+
+def _reference_shard_bytes(arch, shape, mesh_kind):
+    """The per-device bytes the reference's specs imply for its
+    ``_lower_and_compile`` arguments: each leaf's shard shape from its
+    ``PartitionSpec`` on an ``AbstractMesh`` of the mesh's shape, times the
+    leaf's bytes an element.  The port's tokens and labels are int64 where
+    the reference's are int32 (``data.pipeline.input_specs``), so integer
+    batch leaves count 8 bytes an element here, as the port's do."""
+    from jax.sharding import AbstractMesh
+    from repro.optim import adamw as jadamw
+    from repro.sharding import rules as jrules
+    multi = mesh_kind == "multi"
+    mesh = AbstractMesh((2, 16, 16) if multi else (16, 16),
+                        ("pod", "data", "model") if multi else ("data", "model"))
+    cfg = jconfigs.get_config(arch)
+    spec = jpipeline.SHAPES[shape]
+    params = jax.eval_shape(lambda: jlm.init_lm_params(jax.random.PRNGKey(0), cfg))
+    params = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, jnp.bfloat16),
+                          params)
+    batch = jpipeline.input_specs(cfg, shape)
+    kind = spec["kind"]
+    trees = [(params, jrules.param_shardings(
+        params, mesh, mode="decode" if kind == "decode" else "train"))]
+    if kind == "train":
+        opt = jax.eval_shape(jadamw(1e-4).init, params)
+        trees += [(opt, jrules.opt_state_shardings(opt, mesh)),
+                  (batch, jrules.batch_shardings(batch, mesh))]
+    elif kind == "prefill":
+        trees += [(batch, jrules.batch_shardings(batch, mesh))]
+    else:
+        cache = jlm.abstract_decode_cache(cfg, spec["global_batch"],
+                                          spec["seq_len"], jnp.bfloat16)
+        trees += [(cache, jrules.cache_shardings(cache, mesh)),
+                  (batch, jrules.batch_shardings(batch, mesh))]
+    total = 4 if kind == "decode" else 0        # the replicated int32 pos
+    for tree, shardings in trees:
+        leaves = jax.tree.leaves(tree)
+        specs = jax.tree.leaves(shardings, is_leaf=lambda x: hasattr(x, "spec"))
+        assert len(leaves) == len(specs)
+        for leaf, sharding in zip(leaves, specs):
+            local = list(leaf.shape)
+            for d, ax in enumerate(tuple(sharding.spec)):
+                for a in (() if ax is None else ax if isinstance(ax, tuple)
+                          else (ax,)):
+                    local[d] //= mesh.shape[a]
+            item = np.dtype(leaf.dtype).itemsize
+            if tree is batch and np.issubdtype(leaf.dtype, np.integer):
+                item = 8
+            total += int(np.prod(local)) * item
+    return total
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_mesh_argument_bytes_equal_the_references_specs(arch, shape, mesh_kind):
+    r = dryrun.dryrun_one(arch, shape, mesh_kind, save=False)
+    assert r["n_chips"] == (512 if mesh_kind == "multi" else 256)
+    assert r["mesh"] == mesh_kind
+    mf = dryrun.model_flops(tconfigs.get_config(arch), shape)
+    assert r["model_flops_global"] == mf
+    assert r["model_flops_per_device"] == mf / r["n_chips"]
+    assert r["per_device"]["argument_bytes"] == _reference_shard_bytes(
+        arch, shape, mesh_kind)
+    for absent in ("hlo_flops_per_device", "roofline", "temp_bytes",
+                   "collective_bytes_per_device"):
+        assert absent not in r
+
+
+def test_mesh_shapes_at_function_level(small_shapes):
+    """Any mesh shape: (data 4, model 1), (2, 2), (1, 4) over 4 cards, and
+    the (1, 1) mesh's bytes equal to one card's."""
+    from repro_torch.launch.mesh import mesh_shape
+    cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"))
+    card = dryrun.dryrun_one("deepseek-7b", "tiny_train", "card", save=False,
+                             cfg_override=cfg)
+    one = dryrun.dryrun_one("deepseek-7b", "tiny_train", mesh_shape(1, 1),
+                            save=False, cfg_override=cfg)
+    assert one["mesh"] == "1x1" and one["n_chips"] == 1
+    assert one["per_device"]["argument_bytes"] == card["per_device"]["argument_bytes"]
+    for d, m in ((4, 1), (2, 2), (1, 4)):
+        r = dryrun.dryrun_one("deepseek-7b", "tiny_train", mesh_shape(d, m),
+                              save=False, cfg_override=cfg)
+        assert (r["mesh"], r["n_chips"]) == (f"{d}x{m}", 4)
+        assert r["per_device"]["argument_bytes"] < card["per_device"]["argument_bytes"]
+    assert dryrun.np_prod_batch_shards(mesh_shape(4, 4, 2)) == 8
+    assert dryrun.np_prod_batch_shards(mesh_shape(4, 4)) == 4
+
+
+COMPILED = textwrap.dedent("""
+    import json, os
+    import jax, jax.numpy as jnp
+    jax.devices()           # 16 host devices, before the dry run's module sets 512
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.configs.base import get_config, reduced
+    from repro.launch import dryrun as dr, mesh as mesh_lib
+    from repro.models import lm as lm_lib
+    from repro.sharding import rules as sh
+
+    mesh = mesh_lib.make_host_mesh(data=4, model=4)
+    cfg = reduced(get_config("deepseek-7b"))
+    params = lm_lib.abstract_params(cfg, jnp.bfloat16)
+    param_sh = sh.param_shardings(params, mesh, mode="train")
+    batch = {"tokens": jax.ShapeDtypeStruct((8, 64), jnp.int32),
+             "labels": jax.ShapeDtypeStruct((8, 64), jnp.int32)}
+    batch_sh = sh.batch_shardings(batch, mesh)
+    opt, train_step = dr.build_train_step(cfg, num_microbatches=2)
+    opt_state = jax.eval_shape(opt.init, params)
+    opt_sh = sh.opt_state_shardings(opt_state, mesh)
+    with mesh_lib.set_mesh(mesh):
+        compiled = jax.jit(train_step,
+                           in_shardings=(param_sh, opt_sh, batch_sh),
+                           out_shardings=(param_sh, opt_sh,
+                                          NamedSharding(mesh, P()))
+                           ).lower(params, opt_state, batch).compile()
+    print(json.dumps({"argument_size_in_bytes":
+                      int(compiled.memory_analysis().argument_size_in_bytes)}))
+""")
+
+
+def test_mesh_argument_bytes_equal_the_compiled_programs(small_shapes, monkeypatch):
+    """``tests/test_dryrun_small.py``'s setting (reduced deepseek-7b, data
+    4 x model 4, B 8, S 64, M 2, bf16): the port's per-device argument
+    bytes against XLA's compiled ``argument_size_in_bytes`` on 16 host
+    devices.  They differ by exactly the tokens' and labels' width, 8
+    bytes an element in the port and 4 in the reference (ROADMAP C15):
+    4 bytes for each of the 2 x 8 x 64 / 4 local elements."""
+    from repro_torch.launch.mesh import mesh_shape
+    monkeypatch.setitem(tpipeline.SHAPES, "dryrun_small",
+                        dict(seq_len=64, global_batch=8, kind="train"))
+    cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"))
+    r = dryrun.dryrun_one("deepseek-7b", "dryrun_small", mesh_shape(4, 4),
+                          save=False, cfg_override=cfg, force_microbatches=2)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=16")
+    out = subprocess.run([sys.executable, "-c", COMPILED], capture_output=True,
+                         text=True, env=env, timeout=480)
+    assert out.returncode == 0, out.stderr[-3000:]
+    xla = json.loads(out.stdout.strip().splitlines()[-1])["argument_size_in_bytes"]
+    token_width = (8 - 4) * 2 * 8 * 64 // 4
+    assert r["per_device"]["argument_bytes"] == xla + token_width

@@ -59,7 +59,7 @@ def _step(cfg, device):
 
 def test_card_step_counts_what_meta_counts(dev):
     cfg = reduced(get_config("deepseek-7b"))
-    dry = dryrun.dryrun_one("deepseek-7b", SHAPE, codec_kind="c3sl:R=2",
+    dry = dryrun.dryrun_one("deepseek-7b", SHAPE, "card", codec_kind="c3sl:R=2",
                             save=False, cfg_override=cfg,
                             param_dtype=torch.float32)
     args, step = _step(cfg, dev)
