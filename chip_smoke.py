@@ -465,6 +465,25 @@ Phases (any failure exits non-zero, and no result line is printed):
       reference's single (16 x 16) and multi (2 x 16 x 16) meshes as 19a
       runs them on one card, cut short past 40 s;
       ``torch.cuda.memory_allocated()`` the same before and after.
+      The argument bytes alone: the step's count on these meshes is 22b's.
+22. The MoE step over a mesh, and the dry run's per-device counts.
+   a. Phase 9's model (deepseek-v2-lite-16b, the dense layer + 4 MLA/MoE
+      superblocks at full width, 2.84 B params), B 16, S 128, float32,
+      TF32 off, ``c3sl:R=4,backend=pallas``, through
+      ``dryrun.build_train_step`` (AdamW 1e-4, M 1): plain, then on a
+      one-rank NCCL mesh (data 1, model 1) with every param, both moments
+      and the batch DTensors, each from the seed's weights, 1 + 3 steps,
+      the last 3 timed (CUDA events, host included), the first run freed
+      before the second.  The mesh run's first loss within 1e-6 relative
+      of the plain run's, its fingerprints within 2e-5, its first step's
+      kept copies (``moe.ROUTING_LOG``) equal; B1/B2 2 + 2 a step at
+      (4, 4, 262144) in each.
+   b. On ``meta`` over a fake world: deepseek-7b and deepseek-v2-lite-16b
+      at train_4k, full width, bf16, over single (16 x 16) and multi
+      (2 x 16 x 16): the per-device FLOPs, the collective bytes and calls
+      by op, the three roofline terms and the dominant one, cut short past
+      60 s of host time; ``torch.cuda.memory_allocated()`` the same before
+      and after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -5296,7 +5315,8 @@ def mesh_bytes() -> dict:
     argument bytes against CARD_HBM_BYTES; then the ten archs at the
     reference's single and multi meshes, as 19a runs them on one card
     (decode_32k for all, train_4k for DRY_SWEEP_TRAIN, bf16), cut short
-    past DRY_SWEEP_BUDGET_S; ``memory_allocated`` the same before and after."""
+    past DRY_SWEEP_BUDGET_S; ``memory_allocated`` the same before and after.
+    The argument bytes alone (``step=False``): 22b counts the step."""
     import torch
     from repro_torch.configs.archs import ALL_ARCHS
     from repro_torch.configs.base import get_config
@@ -5310,7 +5330,7 @@ def mesh_bytes() -> dict:
     for kind in ["card"] + [mesh_shape(d, m) for d, m in SHARD_MESHES]:
         r = dryrun.dryrun_one(LM_ARCH, DRY_SHAPE, kind, codec_kind="c3sl:R=4",
                               save=False, cfg_override=full,
-                              param_dtype=torch.float32)
+                              param_dtype=torch.float32, step=False)
         check(r["status"] == "ok", f"phase 21b: {r['mesh']} {r['status']}")
         four[r["mesh"]] = {"n_chips": r["n_chips"],
                            "argument_bytes": r["per_device"]["argument_bytes"],
@@ -5324,7 +5344,7 @@ def mesh_bytes() -> dict:
                 or time.perf_counter() - t0 > DRY_SWEEP_BUDGET_S):
             left_out.append(f"{arch} {shape} {mesh}")
             continue
-        r = dryrun.dryrun_one(arch, shape, mesh, save=False)
+        r = dryrun.dryrun_one(arch, shape, mesh, save=False, step=False)
         check(r["status"] == "ok" and r["n_chips"] == (512 if mesh == "multi"
                                                       else 256),
               f"phase 21b: {arch} {shape} {mesh} {r['status']}")
@@ -5381,6 +5401,206 @@ def print_mesh(card, res):
               f"{r['argument_bytes'] / 1e9:.3f} GB (fits {r['fits_one_card']}), "
               f"model_flops/device {r['model_flops_per_device']:.4g}", flush=True)
     print(f"mesh: left out {pd['left_out'] or 'none'}; phase seconds "
+          f"{res['seconds']:.1f}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 22: the MoE step over a mesh, and the dry run's mesh counts
+# --------------------------------------------------------------------------
+
+# 22a: phase 9's model through dryrun.build_train_step, plain and on a
+# one-rank mesh; the cut's codec at (G, R, D)
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_LAYERS = 5
+MOE_SHAPE = (4, 4, 262144)
+# 22b: the production meshes' per-device counts on meta, cut short past
+# MESH_COUNT_BUDGET_S of host time
+MESH_COUNT_ARCHS = ("deepseek-7b", "deepseek-v2-lite-16b")
+MESH_COUNT_MESHES = ("single", "multi")
+MESH_COUNT_BUDGET_S = 60.0
+
+
+def moe_step_run(dev, sharded: bool) -> dict:
+    """One 22a run: MOE_ARCH x MOE_LAYERS (B 16, S 128, float32, LM_CODEC)
+    through ``dryrun.build_train_step`` (AdamW 1e-4, M 1) from the seed's
+    weights and batch, plain or (``sharded``) with every param, both AdamW
+    moments and the batch DTensors on a one-rank NCCL mesh (data 1, model
+    1) placed by the rules, under ``set_mesh``; 1 + LM_TIMED_STEPS steps,
+    the last LM_TIMED_STEPS timed.  The first step's loss and kept copies
+    (``moe.ROUTING_LOG``), the params' fingerprints after the steps, and
+    B1/B2's launches counted from the first step to the last."""
+    import torch
+    from repro_torch.kernels import circconv
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+
+    cfg = lm_config(MOE_ARCH, MOE_LAYERS)
+    args = lm_args(None, arch=MOE_ARCH)
+    kind = torch.device(dev).type
+    with contextlib.ExitStack() as scope:
+        if sharded:
+            if kind == "cuda":
+                torch.cuda.set_device(0)    # the one rank's card, before the mesh
+            scope.enter_context(one_rank_group("nccl" if kind == "cuda"
+                                               else "gloo"))
+        params = lm_lib.init_lm_params(args.seed, cfg, device=dev)
+        batch = lm_batch(cfg, args, 0, dev)
+        if sharded:
+            mesh = mesh_lib.make_host_mesh(1, 1, device_type=kind)
+            params = rules.distribute_tree(
+                params, rules.param_shardings(params, mesh), mesh)
+            batch = rules.distribute_tree(batch, rules.batch_shardings(batch, mesh),
+                                          mesh)
+            scope.enter_context(mesh_lib.set_mesh(mesh))
+        codec, cp = train.make_codec(LM_CODEC, LM_SEQ * cfg.d_model,
+                                     max_R=LM_BATCH, device=dev)
+        opt, step = dryrun.build_train_step(cfg, codec, cp)
+        opt_state = opt.init(params)
+        torch.cuda.synchronize()
+        circconv.reset_launch_counts()
+        moe.ROUTING_LOG = []
+        try:
+            t0 = time.perf_counter()
+            loss = step(params, opt_state, batch)[2]
+            loss1 = float(loss.full_tensor() if sharded else loss)
+            first_s = time.perf_counter() - t0
+            log = moe.ROUTING_LOG
+        finally:
+            moe.ROUTING_LOG = None
+        kept = [int(k) for k, _, _ in log]
+        copies = [int(n) for _, n, _ in log]
+
+        def one():
+            step(params, opt_state, batch)
+
+        step_ms = cuda_ms(one, warmup=0, calls=1, reps=LM_TIMED_STEPS,
+                          hide_host=False)
+        torch.cuda.synchronize()
+        counts, by_kernel = dict(circconv.LAUNCHES), record_launches()
+        shapes = {f"{k[0]}/{k[1]}x{k[2]}x{k[3]}": n
+                  for k, n in circconv.SHAPE_LAUNCHES.items()}
+        got = fingerprints(params)
+        del params, opt_state, batch, step, one, loss, log
+    free_cuda()
+    G, R, D = MOE_SHAPE
+    n = 2 * (1 + LM_TIMED_STEPS)
+    what = "phase 22a " + ("mesh" if sharded else "plain")
+    want_shapes = {f"{k}/{G}x{R}x{D}": n for k in ("bind_superpose", "unbind")}
+    check(shapes == want_shapes, f"{what}: shapes {shapes}, want {want_shapes}")
+    check(counts == {"bind_superpose": n, "unbind": n},
+          f"{what}: launches {counts}, want {n} each")
+    check(math.isfinite(loss1), f"{what}: loss {loss1}")
+    check(kept and all(k <= c for k, c in zip(kept, copies)),
+          f"{what}: kept copies {kept} of {copies}")
+    return {"loss": loss1, "kept": kept, "copies": copies, "fingerprints": got,
+            "launches": counts, "record_launches": by_kernel,
+            "shape_launches": shapes, "first_step_s": first_s,
+            "step_ms": step_ms}
+
+
+def moe_mesh_step(dev) -> dict:
+    """22a: MOE_ARCH's step plain, then on the one-rank mesh, each run
+    freed before the next; the mesh run held to the plain one."""
+    plain = moe_step_run(dev, False)
+    mesh = moe_step_run(dev, True)
+    gap = abs(mesh["loss"] - plain["loss"]) / abs(plain["loss"])
+    check(gap <= SHARD_LOSS_TOL, f"phase 22a: loss {mesh['loss']} on the mesh vs "
+          f"{plain['loss']} plain (rel {gap})")
+    check(mesh["kept"] == plain["kept"], f"phase 22a: kept copies {mesh['kept']} "
+          f"on the mesh vs {plain['kept']} plain")
+    gaps = fingerprint_gaps(mesh.pop("fingerprints"), plain.pop("fingerprints"))
+    worst = {k: max(v["points"], v["sum"]) for k, v in gaps.items()}
+    bad = {k: v for k, v in worst.items() if v > SHARD_LEAF_TOL}
+    check(not bad, f"phase 22a: leaves past {SHARD_LEAF_TOL}: {bad}")
+    return {"arch": MOE_ARCH, "layers": MOE_LAYERS, "batch": LM_BATCH,
+            "seq": LM_SEQ, "codec": LM_CODEC, "mesh": {"data": 1, "model": 1},
+            "plain": plain, "sharded": mesh, "loss_gap": gap,
+            "leaf_gap": max(worst.values()),
+            "bitwise_leaves": sum(v["bitwise"] for v in gaps.values()),
+            "leaves": len(gaps), "step_ratio": mesh["step_ms"] / plain["step_ms"],
+            "timed_steps": LM_TIMED_STEPS}
+
+
+def mesh_counts() -> dict:
+    """22b: ``dryrun_one`` at train_4k, full width, bf16, for
+    MESH_COUNT_ARCHS over MESH_COUNT_MESHES, each counted per device on a
+    fake world on ``meta``, until MESH_COUNT_BUDGET_S of host time is
+    spent; ``memory_allocated`` the same before and after."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runs, left_out = [], []
+    for mesh in MESH_COUNT_MESHES:
+        for arch in MESH_COUNT_ARCHS:
+            if time.perf_counter() - t0 > MESH_COUNT_BUDGET_S:
+                left_out.append(f"{arch} train_4k {mesh}")
+                continue
+            t1 = time.perf_counter()
+            r = dryrun.dryrun_one(arch, "train_4k", mesh, save=False)
+            coll = r.get("collective_bytes_per_device", {})
+            check(r["status"] == "ok" and r.get("hlo_flops_per_device", 0) > 0
+                  and coll.get("total", 0) > 0,
+                  f"phase 22b: {arch} train_4k {mesh}: {r['status']}, "
+                  f"{r.get('mesh_step')}")
+            runs.append({"arch": arch, "mesh": mesh, "n_chips": r["n_chips"],
+                         "seconds": time.perf_counter() - t1,
+                         **{k: r[k] for k in (
+                             "hlo_flops_per_device", "flops_by_op",
+                             "collective_bytes_per_device",
+                             "collective_calls_per_device", "hbm_bytes_floor",
+                             "model_flops_per_device", "useful_flops_ratio",
+                             "roofline", "dominant")}})
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 == mem0, f"phase 22b: memory_allocated {mem0} -> {mem1}")
+    check(runs, "phase 22b: no combination ran")
+    return {"runs": runs, "left_out": left_out, "memory_allocated": [mem0, mem1],
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_mesh_phase(dev) -> dict:
+    """Phase 22: 22a on the card, then 22b on meta."""
+    t0 = time.perf_counter()
+    step = moe_mesh_step(dev)
+    counts = mesh_counts()
+    return {"step": step, "counts": counts, "seconds": time.perf_counter() - t0}
+
+
+def print_moe_mesh(card, res):
+    st, ct = res["step"], res["counts"]
+    pl, ms = st["plain"], st["sharded"]
+    print(f"  moe mesh step {st['arch']} x{st['layers']} B {st['batch']} S "
+          f"{st['seq']} float32 {st['codec']} on {st['mesh']}: loss "
+          f"{ms['loss']:.6f} vs plain {pl['loss']:.6f} (rel {st['loss_gap']:.3g}, "
+          f"limit {SHARD_LOSS_TOL}); fingerprints after {1 + st['timed_steps']} "
+          f"steps worst {st['leaf_gap']:.3g} (limit {SHARD_LEAF_TOL}), "
+          f"{st['bitwise_leaves']} of {st['leaves']} leaves bitwise; kept "
+          f"copies {ms['kept']} of {ms['copies']} (plain {pl['kept']}); "
+          f"launches {ms['launches']} by shape {ms['shape_launches']}",
+          flush=True)
+    print(f"time [{card}] moe mesh train step ({st['arch']}, DTensor, one "
+          f"rank, {st['codec']}, M 1): {ms['step_ms']:.1f} ms against the plain "
+          f"step's {pl['step_ms']:.1f} ms ({st['step_ratio']:.4f}x; each the "
+          f"median of {st['timed_steps']}, host included); first step "
+          f"{ms['first_step_s']:.1f} s (plain {pl['first_step_s']:.1f} s)",
+          flush=True)
+    for r in ct["runs"]:
+        t = r["roofline"]
+        print(f"  mesh counts {r['arch']} train_4k {r['mesh']} ({r['n_chips']} "
+              f"devices, bf16, fake world on meta): FLOPs/device "
+              f"{r['hlo_flops_per_device']:.6g} (model {r['model_flops_per_device']:.6g}, "
+              f"useful {r['useful_flops_ratio']:.4f}); collective bytes/device "
+              f"{r['collective_bytes_per_device']} calls "
+              f"{r['collective_calls_per_device']}; compute_s {t['compute_s']:.6g} "
+              f"memory_s {t['memory_s']:.6g} collective_s {t['collective_s']:.6g}, "
+              f"dominant {r['dominant']}; {r['seconds']:.1f} s", flush=True)
+    print(f"mesh counts: left out {ct['left_out'] or 'none'}; phase seconds "
           f"{res['seconds']:.1f}", flush=True)
 
 
@@ -5679,6 +5899,13 @@ def main() -> int:
     lap("mesh")
     print_mesh(card, mesh)
 
+    print("phase 22: the MoE step over a mesh, and the dry run's per-device "
+          "counts on the reference's meshes", flush=True)
+    free_cuda()
+    moe_mesh = moe_mesh_phase(dev)
+    lap("moe_mesh")
+    print_moe_mesh(card, moe_mesh)
+
     replaces = {"bind_superpose": "src/repro/kernels/circconv.py:134",
                 "unbind": "src/repro/kernels/circconv.py:157",
                 "paged_attention": "src/repro/kernels/paged_attention.py:142",
@@ -5737,7 +5964,8 @@ def main() -> int:
     # phases 13-16 and 18 (its probes' among them), the direct ones' in the
     # main run, the four-step ones' in the six LM training runs (phases
     # 7-12), the two pipeline runs (phase 17), phase 18's four armed and
-    # unarmed train runs and phase 19b's steps, the mixed-radix
+    # unarmed train runs, phase 19b's steps and the mesh steps of phases
+    # 21a and 22a (22a's plain run beside it), the mixed-radix
     # one-pass ones' over every run; of these only phase 14's pixtral-12b
     # (D 5120) takes a mixed-radix width, so that sum must be its decode
     # steps and prefill chunks
@@ -5745,7 +5973,8 @@ def main() -> int:
         return sum(r["record_launches"].get(name, 0) for r in runs)
 
     lm_runs = [lm, qwen, *families.values(), *pipe["runs"].values(),
-               *san["train"]["runs"].values(), dry["step"], mesh["step"]]
+               *san["train"]["runs"].values(), dry["step"], mesh["step"],
+               moe_mesh["step"]["plain"], moe_mesh["step"]["sharded"]]
     serve_runs = [r for f in (*serve_families.values(), *serve_states.values(),
                               serve_ii, door) for r in f["runs"].values()]
     serve_runs += list(san["serve"].values())
@@ -5831,6 +6060,7 @@ def main() -> int:
         "serving_families": serve_families, "serving_states": serve_states,
         "serving_ii": serve_ii, "frontdoor": door, "pipeline": pipe,
         "sanitize": san, "dryrun": dry, "sync_audit": audit, "mesh": mesh,
+        "moe_mesh": moe_mesh,
         "adjoint_gaps": ADJOINT_GAPS,
         "paged_kernel_times": ptimes, "step_times": steps,
         "step_profile": prof, "record": record},

@@ -10,12 +10,21 @@ over the params, the optimizer state and the batch (the cache and tokens
 in decode mode), of each leaf's local shard bytes under
 ``sharding.rules``, as the reference's ``_lower_and_compile`` places them;
 ``n_chips`` is the mesh's size and ``model_flops_per_device`` is
-``model_flops / n_chips``, as in the reference.  On ``card``, one H100, it
-also runs the step once under ``torch.utils.flop_counter.FlopCounterMode``:
-the counted matmul FLOPs (the reference's ``hlo_flops_per_device`` counts
-dots; the FFTs and the circconv kernels count nothing on either side), the
-exact bytes of the step's arguments, and the three roofline terms against
-an H100's peaks.
+``model_flops / n_chips``, as in the reference.  Where the sharded train
+step is held on 4 ranks (the attention, MLA, MLP and MoE sublayers:
+the dense and MoE families), the step also runs once on a fake world of
+``n_chips`` ranks (torch's fake process group: no devices, no
+communication), its arguments ``meta`` DTensors placed by the rules, and
+:class:`StepCounter` counts what one device runs: the FLOPs of its local
+ops, and the bytes and calls of its collectives by op (each collective's
+result, as the reference's ``collective_bytes`` reads XLA's).  Any
+other combination records ``mesh_step`` with the reason.  On ``card``, one
+H100, it runs the step once under
+``torch.utils.flop_counter.FlopCounterMode``.  Either way: the counted
+matmul FLOPs (the reference's ``hlo_flops_per_device`` counts dots; the
+FFTs and the circconv kernels count nothing on either side), the exact
+bytes of the step's arguments, and the three roofline terms against an
+H100's peaks (the collective term over NVLink).
 
     # one combination, on the CPU (nothing is allocated; no card needed)
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
@@ -26,14 +35,14 @@ an H100's peaks.
 
 Each result lands in ``--out`` (default ``build/dryrun`` under the
 checkout), one JSON a combination.  XLA-only numbers (temp bytes, the
-compiled peak, collective bytes by op, the top-k wire bytes read from HLO)
-have no counterpart and are absent, and so are the FLOPs counted per
-device on a mesh; the microbatch count is ``force_microbatches`` or 1 (the
+compiled peak, the top-k wire bytes read from HLO) have no counterpart and
+are absent; the microbatch count is ``force_microbatches`` or 1 (the
 reference's auto-tune loop reads XLA's memory analysis).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -43,7 +52,8 @@ import time
 import traceback
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch import codecs, transport
 from repro_torch.configs.archs import ALL_ARCHS
@@ -266,6 +276,152 @@ def count_flops(fn, *args):
     return out, int(fc.get_total_flops()), by_op
 
 
+# the collectives by the reference's names (``collective_bytes``), matched
+# on the op's name: torch's functional collectives (DTensor's), their
+# autograd forms, the c10d ops and DTensor's own all-to-all
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLLECTIVE_NAMES = (("all_gather", "all-gather"), ("allgather", "all-gather"),
+                     ("reduce_scatter", "reduce-scatter"),
+                     ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+                     ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+                     ("send", "collective-permute"), ("recv", "collective-permute"),
+                     ("permute", "collective-permute"))
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "c10d", "_dtensor")
+
+
+def _collective(op: str):
+    """The reference's name of the collective ``op`` (an op packet's
+    name, ``"_c10d_functional.all_reduce"``), or None."""
+    space, _, name = op.partition(".")
+    if space not in _COLLECTIVE_NAMESPACES:
+        return None
+    return next((kind for key, kind in _COLLECTIVE_NAMES if key in name), None)
+
+
+def _result_bytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_result_bytes(o) for o in out)
+    return 0
+
+
+class StepCounter(TorchDispatchMode):
+    """What one device runs, counted on its local tensors: an op on
+    DTensors is handed back (``NotImplemented``) so that DTensor runs it,
+    and the local ops it runs come through here.  Counts the FLOPs of the
+    matmul-class ops by op (``FlopCounterMode``'s formulas), and each
+    collective's calls and result bytes under the reference's names.  The
+    ops DTensor's sharding propagation runs on fake tensors (global
+    shapes, no data) are not counted.  ``FlopCounterMode`` over DTensors
+    counts the global shapes instead."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops_by_op: dict = {}
+        self.coll_bytes = dict.fromkeys(COLLECTIVES, 0)
+        self.coll_calls = dict.fromkeys(COLLECTIVES, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            name = str(packet)
+            self.flops_by_op[name] = self.flops_by_op.get(name, 0) + n
+        kind = _collective(str(packet))
+        if kind is not None:
+            self.coll_bytes[kind] += _result_bytes(out)
+            self.coll_calls[kind] += 1
+        return out
+
+    def counts(self) -> dict:
+        return {"hlo_flops_per_device": sum(self.flops_by_op.values()),
+                "flops_by_op": dict(self.flops_by_op),
+                "collective_bytes_per_device": {
+                    **self.coll_bytes, "total": sum(self.coll_bytes.values())},
+                "collective_calls_per_device": dict(self.coll_calls)}
+
+
+@contextlib.contextmanager
+def fake_world(mesh):
+    """``mesh`` (a ``MeshShape``) as a ``launch.mesh.HostMesh`` over a fake
+    world of ``mesh.size`` ranks (``torch.testing``'s fake process group,
+    this process rank 0; its collectives move nothing).  The default
+    process group is destroyed on the way out, so that a real group can
+    be made after it; it must not exist on the way in."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's fake world is this process's default "
+                           "process group: destroy the one that exists first")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    mesh_lib.forget_mesh_caches()
+    try:
+        yield mesh_lib.HostMesh(init_device_mesh(
+            "cpu", tuple(mesh.shape.values()),
+            mesh_dim_names=tuple(mesh.axis_names)))
+    finally:
+        dist.destroy_process_group()
+
+
+def place_meta(tree, specs, mesh):
+    """Each ``meta`` tensor of ``tree`` as a DTensor on ``mesh`` (a
+    ``HostMesh``) placed by its spec, from an empty local shard
+    (``DTensor.from_local``: no communication)."""
+    from torch.distributed.tensor import DTensor
+    dm = mesh.device_mesh
+
+    def one(t, spec):
+        local = torch.empty(sh.local_shape(t.shape, spec, mesh), dtype=t.dtype,
+                            device="meta")
+        return DTensor.from_local(local, dm, sh.placements(spec, dm),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return tree_map(one, tree, specs)
+
+
+def count_step(fn, *args):
+    """``fn(*args)`` once under a :class:`StepCounter`: (its output, the
+    counts)."""
+    with StepCounter() as counter:
+        out = fn(*args)
+    return out, counter.counts()
+
+
+# the sublayer kinds whose sharded train step a 4-rank test holds
+MESH_STEP_KINDS = frozenset({"attn", "mla", "mlp", "moe"})
+
+
+def mesh_step_gap(cfg: ModelConfig, kind: str):
+    """Why the step of ``kind`` is not counted on a mesh for ``cfg`` (a
+    dict with the reason and the ROADMAP item), or None where it is."""
+    if kind != "train":
+        return {"reason": f"the {kind} step over a mesh is held by no 4-rank "
+                          "test (serving over a mesh)", "roadmap": "A25"}
+    kinds = {k for layer in cfg.block_pattern for k in layer}
+    missing = sorted(kinds - MESH_STEP_KINDS)
+    if cfg.is_encdec:
+        missing.append("the encoder")
+    elif cfg.frontend:
+        missing.append(f"the {cfg.frontend} frontend")
+    if missing:
+        return {"reason": f"{', '.join(missing)} over a mesh: held by no 4-rank "
+                          "test", "roadmap": "A23"}
+    return None
+
+
 def abstract_step(cfg: ModelConfig, shape_name: str, codec, codec_params,
                   param_dtype=torch.bfloat16, num_microbatches: int = 1):
     """The step of ``shape_name``'s kind on ``meta``: (its arguments, the
@@ -307,12 +463,16 @@ def abstract_step(cfg: ModelConfig, shape_name: str, codec, codec_params,
 def dryrun_one(arch: str, shape_name: str, mesh_kind="single", *,
                codec_kind="none", R=4, quant_bits=None, unitary=False,
                save=True, tag="baseline", param_dtype=torch.bfloat16,
-               cfg_override=None, force_microbatches=None, out=RESULTS_DIR):
+               cfg_override=None, force_microbatches=None, out=RESULTS_DIR,
+               step=True):
     """One (arch, shape, mesh) on ``meta``.  ``shape_name`` is a key of
     ``SHAPES`` (a caller may add its own entry); ``mesh_kind`` is "card"
     (one H100: the step's counted FLOPs and roofline too), "single" or
-    "multi" (the reference's meshes) or a ``launch.mesh.MeshShape``;
-    ``cfg_override`` replaces the shape-adjusted config."""
+    "multi" (the reference's meshes) or a ``launch.mesh.MeshShape``, where
+    the step is counted per device on a fake world where it is held
+    (:func:`mesh_step_gap`), or, with ``step=False``, not run at all (the
+    argument bytes alone); ``cfg_override`` replaces the shape-adjusted
+    config."""
     mesh = make_mesh(mesh_kind)
     cfg = cfg_override or shape_adjusted_config(arch, shape_name)
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh_kind),
@@ -338,12 +498,12 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind="single", *,
         "num_microbatches": num_microbatches,
     }
     if mesh is not None:
-        specs = argument_specs(args, SHAPES[shape_name]["kind"], mesh)
+        kind = SHAPES[shape_name]["kind"]
+        specs = argument_specs(args, kind, mesh)
         argument_bytes = sum(sharded_bytes(a, s, mesh)
                              for a, s in zip(args, specs))
         result.update(common, **{
             "mesh_shape": dict(mesh.shape),
-            "trace_s": round(time.time() - t0, 1),
             "per_device": {"argument_bytes": argument_bytes},
             "fits_one_card": argument_bytes <= H100_HBM_BYTES,
             "model_flops_global": mf,
@@ -351,29 +511,47 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind="single", *,
             "params_global": cfg.param_count(),
             "params_active": cfg.active_param_count(),
         })
+        gap = (mesh_step_gap(cfg, kind) if step else
+               {"reason": "not asked (step=False)", "roadmap": None})
+        if gap is None:
+            with fake_world(mesh) as world, mesh_lib.set_mesh(world):
+                _, counts = count_step(fn, *(place_meta(a, s, world)
+                                             for a, s in zip(args, specs)))
+            result.update(_roofline_fields(
+                counts, argument_bytes,
+                counts["collective_bytes_per_device"]["total"], mf / n_chips,
+                n_chips, param_dtype))
+        else:
+            result["mesh_step"] = gap
+        result["trace_s"] = round(time.time() - t0, 1)
         return _save(result, out) if save else result
 
     argument_bytes = tree_bytes(args)
     _, flops, by_op = count_flops(fn, *args)
-    trace_s = time.time() - t0
-    hbm_floor = argument_bytes          # every argument read once
-    terms = roofline_terms(flops, hbm_floor, 0, n_chips, param_dtype)
     result.update(common, **{
-        "trace_s": round(trace_s, 1),
         "per_device": {"argument_bytes": argument_bytes},
         "fits_one_card": argument_bytes <= H100_HBM_BYTES,
-        "hlo_flops_per_device": flops,
-        "flops_by_op": by_op,
-        "hbm_bytes_floor": hbm_floor,
         "model_flops_global": mf,
         "model_flops_per_device": mf / n_chips,
-        "useful_flops_ratio": (mf / n_chips) / flops if flops else None,
-        "roofline": terms,
-        "dominant": max(terms, key=terms.get),
+        **_roofline_fields({"hlo_flops_per_device": flops, "flops_by_op": by_op},
+                           argument_bytes, 0, mf / n_chips, n_chips, param_dtype),
         "params_global": cfg.param_count(),
         "params_active": cfg.active_param_count(),
+        "trace_s": round(time.time() - t0, 1),
     })
     return _save(result, out) if save else result
+
+
+def _roofline_fields(counts, hbm_floor, coll_bytes, mf_per_device, n_chips,
+                     dtype) -> dict:
+    """``counts`` with the reference's roofline fields beside them: every
+    argument read once is the HBM floor, the collective bytes go over
+    NVLink."""
+    flops = counts["hlo_flops_per_device"]
+    terms = roofline_terms(flops, hbm_floor, coll_bytes, n_chips, dtype)
+    return {**counts, "hbm_bytes_floor": hbm_floor,
+            "useful_flops_ratio": mf_per_device / flops if flops else None,
+            "roofline": terms, "dominant": max(terms, key=terms.get)}
 
 
 def pipeline_dryrun(arch: str, *, R: int = 4, quant_bits=None, unitary=False,

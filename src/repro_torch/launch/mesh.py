@@ -80,4 +80,25 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,
     with its address, world size and rank) and destroys it."""
     from torch.distributed.device_mesh import init_device_mesh
     shape, names = _axes(data, model, pod)
+    forget_mesh_caches()
     return HostMesh(init_device_mesh(device_type, shape, mesh_dim_names=names))
+
+
+def forget_mesh_caches():
+    """Drop DTensor's caches of sharding decisions.  They are keyed by
+    ``DeviceMesh`` equality (shape, axis names, device type), which a new
+    mesh of the same shape over a new process group shares with an old
+    one, so a decision cached on the old mesh would run its collectives
+    on the old, destroyed groups.  Called for each new mesh."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    # each cache where this torch has it (the native one is newer)
+    for clear in (getattr(DTensor._op_dispatcher.sharding_propagator
+                          .propagate_op_sharding, "cache_clear", None),
+                  getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None),
+                  getattr(getattr(_redistribute, "_gen_transform_infos", None),
+                          "cache_clear", None)):
+        if clear is not None:
+            clear()

@@ -51,7 +51,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
 from repro_torch.models.layers import (apply_rope, dense_init, matmul, promote,
                                        rms_norm)
-from repro_torch.sharding.constraints import is_dtensor, on_local_heads
+from repro_torch.sharding.constraints import (is_dtensor, on_local_heads,
+                                              rows_only, split_heads,
+                                              whole_grad)
 
 NEG_INF = -1e30
 
@@ -78,15 +80,14 @@ def init_gqa(rng: torch.Generator, d_model: int, num_heads: int,
 
 
 def _qkv(p, x, num_heads, num_kv_heads, head_dim):
-    B, S, _ = x.shape
     q = x @ p["w_q"]
     k = x @ p["w_k"]
     v = x @ p["w_v"]
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
-    return (q.reshape(B, S, num_heads, head_dim),
-            k.reshape(B, S, num_kv_heads, head_dim),
-            v.reshape(B, S, num_kv_heads, head_dim))
+    return (split_heads(q, num_heads, head_dim),
+            split_heads(k, num_kv_heads, head_dim),
+            split_heads(v, num_kv_heads, head_dim))
 
 
 def _expand_mask(mask):
@@ -482,12 +483,14 @@ def init_mla(rng: torch.Generator, d_model: int, num_heads: int, *,
 def _mla_qc(p, x, positions, *, num_heads, qk_nope_dim, qk_rope_dim, rope_theta):
     """(q_nope, q_rope, c_kv, k_pe): the per-head query halves, the
     normalised latent (B,S,L) and the shared rope key (B,S,rope)."""
-    B, S, _ = x.shape
-    q = matmul(x, p["w_q"]).reshape(B, S, num_heads, qk_nope_dim + qk_rope_dim)
+    q = split_heads(matmul(x, p["w_q"]), num_heads, qk_nope_dim + qk_rope_dim)
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, qk_rope_dim, rope_theta)
-    c_kv = rms_norm(matmul(x, p["w_dkv"]), p["kv_norm"])
-    k_pe = apply_rope(matmul(x, p["w_kpe"])[:, :, None, :], positions,
+    # over a mesh the latent and the rope key, from weights no rule
+    # splits, are kept whole but for their rows: DTensor would split their
+    # columns over "model" and then their sequence for the norm
+    c_kv = whole_grad(rms_norm(rows_only(matmul(x, p["w_dkv"])), p["kv_norm"]))
+    k_pe = apply_rope(rows_only(matmul(x, p["w_kpe"]))[:, :, None, :], positions,
                       qk_rope_dim, rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_pe
 
@@ -503,8 +506,8 @@ def apply_mla(p, x, positions, *, num_heads, kv_lora_rank, qk_nope_dim,
     q_nope, q_rope, c_kv, k_pe = _mla_qc(
         p, x, positions, num_heads=H, qk_nope_dim=qk_nope_dim,
         qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, qk_nope_dim)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, H, v_head_dim)
+    k_nope = split_heads(c_kv @ p["w_uk"], H, qk_nope_dim)
+    v = split_heads(c_kv @ p["w_uv"], H, v_head_dim)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, qk_rope_dim)],
                       dim=-1)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.constraints import whole_inner
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -93,9 +95,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    up = matmul(x, p["w_up"])
+    # over a mesh the hidden's partial sums are reduced before the
+    # activation (the first dense superblock's weights take the experts'
+    # rules, split over d_model), which DTensor would resolve by splitting
+    # the sequence
+    up = whole_inner(matmul(x, p["w_up"]))
     if "w_gate" in p:
-        up = F.silu(matmul(x, p["w_gate"])) * up
+        up = F.silu(whole_inner(matmul(x, p["w_gate"]))) * up
     else:
         up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     return matmul(up, p["w_down"])

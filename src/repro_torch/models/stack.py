@@ -55,7 +55,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import apply_mlp, init_mlp, layer_norm, rms_norm
 from repro_torch.sharding.active import active_mesh
-from repro_torch.sharding.constraints import constrain, unshard
+from repro_torch.sharding.constraints import (constrain, rows_only, unshard,
+                                              whole_grad)
 
 RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
@@ -231,8 +232,10 @@ def _mla_args(cfg: ModelConfig) -> dict:
 def apply_sublayer(kind: str, p, cfg: ModelConfig, h, positions, *,
                    memory=None, sliding_window=None):
     """Returns (residual_update, aux_loss); the aux loss is the MoE
-    router's, 0.0 for every other kind."""
-    x = _apply_norm(cfg, p["norm"], h)
+    router's, 0.0 for every other kind.  Over a mesh the normed input's
+    gradient is made whole before the norm's backward
+    (``constraints.whole_grad``)."""
+    x = whole_grad(_apply_norm(cfg, p["norm"], h))
     aux = 0.0
     if kind == "attn":
         y = attn_lib.apply_gqa(p, x, positions, num_heads=cfg.num_heads,
@@ -274,7 +277,12 @@ def apply_superblock(p_sb, cfg: ModelConfig, h, positions, *, pattern=None,
             y, aux = apply_sublayer(kind, p_sb[f"l{li}_{si}_{kind}"], cfg, h,
                                     positions, memory=memory,
                                     sliding_window=sliding_window)
-            h = h + y
+            # over a mesh the update is made whole but for its rows (a
+            # row-parallel output's sum over "model"), so the stream keeps
+            # its sequence whole inside the superblock: a matmul that
+            # flattens (B, S) over a split sequence is what DTensor's
+            # planner cannot place without replicating its operands
+            h = h + rows_only(y)
             aux_total = aux_total + aux
     return h, aux_total
 

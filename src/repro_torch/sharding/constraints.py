@@ -86,7 +86,7 @@ def on_local_rows(fn, x: torch.Tensor, group_rows: int) -> torch.Tensor:
     if x.to_local().shape[0] % group_rows:
         x = x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
     out = fn(x.to_local())
-    return _from_local(out, x.device_mesh, x.placements,
+    return from_local(out, x.device_mesh, x.placements,
                        (x.shape[0], *out.shape[1:]))
 
 
@@ -128,6 +128,34 @@ def rows_only(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``t`` (..., heads * head_dim) as (..., heads, head_dim).  On a
+    DTensor whose last dim is split over mesh dims that do not divide
+    ``heads`` (which DTensor cannot unflatten), those mesh dims are made
+    whole first."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh, last = t.device_mesh, t.ndim - 1
+        split = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+        if heads % math.prod(mesh.size(i) for i in split):
+            t = t.redistribute(mesh, tuple(Replicate() if i in split else p
+                                           for i, p in enumerate(t.placements)))
+    return t.reshape(*t.shape[:-1], heads, head_dim)
+
+
+class _MapGrad(torch.autograd.Function):
+    """The identity; ``fn`` of its gradient in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
 def on_local_heads(fn, q, k, v, *args):
     """``fn(q, k, v, *args)`` (attention over (B, S, heads, hd) -> (B, S,
     heads * hd_v)) on each rank's local tensors: the batch stays split
@@ -152,14 +180,19 @@ def on_local_heads(fn, q, k, v, *args):
         else:
             place.append(Replicate())
     place = tuple(place)
-    out = fn(*(t.redistribute(mesh, place).to_local() for t in (q, k, v)), *args)
+    # the local gradients made contiguous: the attention's backward gives
+    # them in a permuted layout, and DTensor views a local tensor as if it
+    # were laid out as the global one
+    out = fn(*(_MapGrad.apply(t.redistribute(mesh, place).to_local(),
+                              torch.Tensor.contiguous) for t in (q, k, v)), *args)
     split = math.prod(mesh.size(i) for i, p in enumerate(place) if p == Shard(2))
-    return _from_local(out, mesh, place, (q.shape[0], *out.shape[1:-1],
+    return from_local(out, mesh, place, (q.shape[0], *out.shape[1:-1],
                                           out.shape[-1] * split))
 
 
-def _from_local(out, mesh, placements, shape):
-    """A DTensor of global ``shape`` from each rank's contiguous ``out``."""
+def from_local(out, mesh, placements, shape):
+    """A DTensor of global ``shape`` from each rank's contiguous ``out``
+    (no communication; gradients flow through)."""
     from torch.distributed.tensor import DTensor
     stride = [1] * len(shape)
     for i in range(len(shape) - 2, -1, -1):
@@ -187,7 +220,37 @@ def lookup(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     grads = [Partial() if p.is_shard() else Replicate() for p in rows]
     whole = table.redistribute(mesh, (Replicate(),) * mesh.ndim)
     out = whole.to_local(grad_placements=grads)[local_index]
-    return _from_local(out, mesh, rows, (*index.shape, *table.shape[1:]))
+    return from_local(out, mesh, rows, (*index.shape, *table.shape[1:]))
+
+
+def whole_inner(x: torch.Tensor) -> torch.Tensor:
+    """DTensor ``x`` with its partial sums reduced and none of its inner
+    dims (all but the first and the last) split: each ``Partial`` and each
+    such ``Shard`` made ``Replicate``.  A matmul flattens the leading
+    dims, and DTensor's planner cannot place a flattened dim split over an
+    inner one without replicating the operands; left to itself, DTensor
+    may resolve a partial sum into just such a split.  A no-op on a plain
+    tensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_partial()
+                 or (p.is_shard() and 0 < p.dim < x.ndim - 1) else p
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def whole_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, its gradient made :func:`whole_inner` in the backward:
+    the input gradient of column-parallel projections, partial over
+    "model", is summed there before it reaches the op that made ``x``
+    (Megatron's f), where DTensor would resolve it into a split sequence.
+    A no-op on a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    return _MapGrad.apply(x, whole_inner)
 
 
 def unshard(x: torch.Tensor, axis: str) -> torch.Tensor:
